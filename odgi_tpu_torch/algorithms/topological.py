@@ -1,0 +1,127 @@
+"""Topological ordering of a bidirected graph (host).
+
+The modified Kahn algorithm of ``odgi_tpu/algorithms/topological.py`` with
+cycle-breaking seeds and masked edges.  The ready set, the seed set and the
+unvisited fallback all pop the minimum node rank first, so the order is
+deterministic.  The output is a permutation of node ranks.
+"""
+
+from __future__ import annotations
+
+import heapq
+from typing import List, Set
+
+import numpy as np
+
+from ..core.graph import GraphTensors
+
+
+def head_nodes(g: GraphTensors) -> np.ndarray:
+    """Ranks of nodes with no edges on their left (forward) side."""
+    # left edges of forward node rank r = right edges of handle (r<<1)|1
+    deg = g.adjacency.degree_out()
+    return np.nonzero(deg[1::2] == 0)[0]
+
+
+class _MinSet:
+    """Set with O(log n) min-pop."""
+
+    def __init__(self):
+        self._heap: List[int] = []
+        self._set: Set[int] = set()
+
+    def add(self, x: int):
+        if x not in self._set:
+            self._set.add(x)
+            heapq.heappush(self._heap, x)
+
+    def discard(self, x: int):
+        self._set.discard(x)
+
+    def __contains__(self, x: int) -> bool:
+        return x in self._set
+
+    def __bool__(self) -> bool:
+        return bool(self._set)
+
+    def pop_min(self) -> int:
+        while True:
+            x = heapq.heappop(self._heap)
+            if x in self._set:
+                self._set.remove(x)
+                return x
+
+
+def _edge_key(a: int, b: int) -> tuple:
+    """Canonical directed-edge key: (a, b) and (flip(b), flip(a)) are the
+    same bidirected edge."""
+    fa, fb = b ^ 1, a ^ 1
+    return (fa, fb) if (fa, fb) < (a, b) else (a, b)
+
+
+def topological_order(g: GraphTensors, use_heads: bool = True) -> np.ndarray:
+    """A topological node-rank order; `use_heads` seeds the ready set with
+    the head nodes (the 's' step of the sort pipeline)."""
+    n = g.num_nodes
+    if n == 0:
+        return np.empty(0, dtype=np.int64)
+    adj = g.adjacency
+
+    masked: Set[tuple] = set()
+    sorted_out: List[int] = []
+
+    s = _MinSet()  # oriented, ready to emit (by rank)
+    seeds = _MinSet()
+    unvisited = _MinSet()
+
+    if use_heads:
+        for r in head_nodes(g):
+            s.add(int(r))
+    for r in range(n):
+        if r not in s:
+            unvisited.add(r)
+
+    while unvisited or s:
+        # refill from seeds, then from an arbitrary unvisited node
+        while not s and seeds:
+            sr = seeds.pop_min()
+            if sr in unvisited:
+                s.add(sr)
+                unvisited.discard(sr)
+        if not s:
+            r = unvisited.pop_min()
+            s.add(r)
+
+        while s:
+            i = s.pop_min()
+            h = i << 1  # forward orientation
+            sorted_out.append(i)
+
+            # Mask left-side edges into already-visited cycle entry points.
+            for nb in adj.neighbors(h ^ 1):
+                prev_node = int(nb) ^ 1
+                if (prev_node >> 1) not in unvisited:
+                    masked.add(_edge_key(prev_node, h))
+
+            # Follow right-side edges.
+            for nxt in adj.neighbors(h):
+                nxt = int(nxt)
+                key = _edge_key(h, nxt)
+                if key in masked:
+                    continue
+                masked.add(key)
+                nr = nxt >> 1
+                if nr in unvisited:
+                    # does nxt still have an unmasked incoming edge?
+                    unmasked_incoming = False
+                    for pb in adj.neighbors(nxt ^ 1):
+                        if _edge_key(int(pb) ^ 1, nxt) not in masked:
+                            unmasked_incoming = True
+                            break
+                    if not unmasked_incoming:
+                        s.add(nr)
+                        unvisited.discard(nr)
+                    elif nr not in seeds:
+                        seeds.add(nr)
+
+    return np.asarray(sorted_out, dtype=np.int64)

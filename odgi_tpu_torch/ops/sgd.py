@@ -1,0 +1,185 @@
+"""Path-guided SGD (1D sort + 2D layout): schedule, configs and dispatch.
+
+The counterpart of ``odgi_tpu/ops/sgd.py`` for the strata path.  The
+learning-rate schedule and the derived configs are exact copies, so a
+config built here equals the JAX package's field for field (less the
+fields that only steer the TPU's batched path).  ``path_sgd_1d`` and
+``path_sgd_2d`` run the strata scheme of ``ops/strata_sgd.py``; the parts
+of the reference that take another path raise ``NotImplementedError`` and
+name the ROADMAP item that will port them.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core.graph import GraphTensors
+from ..device import resolve_device
+
+# Smallest step count the strata path takes; below it the reference runs
+# its batched path (odgi_tpu/ops/pallas_sgd.py `_supported`).
+MIN_STRATA_STEPS = 1024
+# Positions at or past this take the batched path in the reference too.
+MAX_STRATA_POS = 2**30
+
+
+def not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to odgi_tpu_torch yet (ROADMAP.md queue 1 "
+        f"item {item})"
+    )
+
+
+def sgd_schedule(
+    w_min: float,
+    w_max: float,
+    iter_max: int,
+    iter_with_max_learning_rate: int,
+    eps: float,
+) -> np.ndarray:
+    """path_linear_sgd_schedule: per-iteration learning rates (f64)."""
+    eta_max = 1.0 / w_min
+    eta_min = eps / w_max
+    lam = math.log(eta_max / eta_min) / (iter_max - 1) if iter_max > 1 else 0.0
+    t = np.arange(iter_max + 1, dtype=np.float64)
+    etas = eta_max * np.exp(-lam * np.abs(t - iter_with_max_learning_rate))
+    return np.where(np.isfinite(etas), etas, eta_min)
+
+
+@dataclass(frozen=True)
+class SgdConfig:
+    """PG-SGD parameters (defaults follow `odgi sort` / `odgi layout`)."""
+
+    iter_max: int
+    min_term_updates: int
+    eta_max: float
+    eps: float = 0.01
+    delta: float = 0.0
+    iter_with_max_learning_rate: int = 0
+    theta: float = 0.99
+    space: int = 1
+    space_max: int = 100
+    space_quantization_step: int = 100
+    cooling_start: float = 0.5
+    seed: int = 9399220
+
+    @property
+    def first_cooling_iteration(self) -> int:
+        return int(math.floor(self.cooling_start * self.iter_max))
+
+
+def derive_config_1d(g: GraphTensors, **overrides) -> SgdConfig:
+    """1D defaults: iter_max=100, min_term_updates = steps, eta_max =
+    max_steps^2, Zipf space = longest path in nucleotides."""
+    sum_steps = int(g.num_steps)
+    max_steps = int(g.path_step_count.max()) if g.num_paths else 1
+    space = int(g.path_length.max()) if g.num_paths else 1
+    space_max = int(overrides.pop("space_max", 100))
+    max_dists = max(space_max + 1, 100)
+    if space > space_max:
+        quant = max(2, -(-(space - space_max) // (max_dists - space_max)))
+    else:
+        quant = 100
+    cfg = dict(
+        iter_max=100,
+        min_term_updates=sum_steps,
+        eta_max=float(max_steps) ** 2,
+        space=max(1, space),
+        space_max=space_max,
+        space_quantization_step=quant,
+        theta=0.99,
+        cooling_start=0.5,
+    )
+    cfg.update(overrides)
+    return SgdConfig(**cfg)
+
+
+def derive_config_2d(g: GraphTensors, **overrides) -> SgdConfig:
+    """2D defaults: iter_max=30, min_term_updates = 10 x steps, Zipf space =
+    most steps in a path, space_max=1000, quantization step 100."""
+    sum_steps = int(g.num_steps)
+    max_steps = int(g.path_step_count.max()) if g.num_paths else 1
+    space = max(1, max_steps)
+    cfg = dict(
+        iter_max=30,
+        min_term_updates=10 * sum_steps,
+        eta_max=float(max_steps) ** 2,
+        space=space,
+        space_max=min(space, 1000),
+        space_quantization_step=100,
+        theta=0.99,
+        cooling_start=0.5,
+    )
+    cfg.update(overrides)
+    return SgdConfig(**cfg)
+
+
+def _check_strata_domain(g: GraphTensors, cfg: SgdConfig, use_paths, pin_nodes,
+                         snapshot_cb) -> None:
+    """Raise for every case the reference sends down another path."""
+    if use_paths is not None and sorted(use_paths) != list(range(g.num_paths)):
+        raise not_ported("use_paths (PG-SGD on a subset of the paths)", 14)
+    if pin_nodes is not None:
+        raise not_ported("target-path pinning (-H, the batched SGD path)", 9)
+    if snapshot_cb is not None:
+        raise not_ported("per-iteration snapshots (-u, the batched SGD path)", 9)
+    if cfg.delta > 0:
+        raise not_ported("delta early stop (-j)", 8)
+    if g.num_steps < MIN_STRATA_STEPS:
+        raise not_ported(
+            f"graphs under {MIN_STRATA_STEPS} steps (the batched SGD path)", 9
+        )
+    max_pos = int(g.step_pos.max(initial=0)) + int(g.node_len.max(initial=0))
+    if max_pos >= MAX_STRATA_POS:
+        raise not_ported("path positions of 2^30 and more (the batched SGD path)", 9)
+
+
+def path_sgd_1d(
+    g: GraphTensors,
+    cfg: Optional[SgdConfig] = None,
+    use_paths: Optional[Sequence[int]] = None,
+    x0=None,
+    pin_nodes=None,
+    snapshot_cb=None,
+    device=None,
+) -> torch.Tensor:
+    """1D PG-SGD; returns the final X positions, f64 (N,) on `device`.
+
+    X starts at the cumulative node lengths in current order unless `x0`
+    is given.  Skips when no path has more than one step."""
+    dev = resolve_device(device)
+    if cfg is None:
+        cfg = derive_config_1d(g)
+    if not (g.path_step_count > 1).any():
+        return torch.as_tensor(g.node_offset.astype(np.float64), device=dev)
+    _check_strata_domain(g, cfg, use_paths, pin_nodes, snapshot_cb)
+    from .strata_sgd import path_sgd_1d_strata
+
+    return path_sgd_1d_strata(g, cfg, x0, dev)
+
+
+def path_sgd_2d(
+    g: GraphTensors,
+    coords0,
+    cfg: Optional[SgdConfig] = None,
+    use_paths: Optional[Sequence[int]] = None,
+    pin_nodes=None,
+    snapshot_cb=None,
+    device=None,
+) -> torch.Tensor:
+    """2D PG-SGD layout from the (2N, 2) initial coordinates `coords0`;
+    returns f64 (2N, 2) coordinates on `device`."""
+    dev = resolve_device(device)
+    if cfg is None:
+        cfg = derive_config_2d(g)
+    if not (g.path_step_count > 1).any():
+        return torch.as_tensor(np.asarray(coords0, np.float64), device=dev)
+    _check_strata_domain(g, cfg, use_paths, pin_nodes, snapshot_cb)
+    from .strata_sgd import path_sgd_2d_strata
+
+    return path_sgd_2d_strata(g, coords0, cfg, dev)

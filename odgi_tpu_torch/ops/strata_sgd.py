@@ -1,0 +1,322 @@
+"""The strata PG-SGD scheme on tensors: plain versions and the runs.
+
+The counterpart of ``odgi_tpu/ops/pallas_sgd.py``'s ``_make_kernel_1d`` /
+``_make_kernel_2d`` and of their semantic twins ``path_sgd_1d_strata_xla``
+/ ``path_sgd_2d_strata_xla``.  Coordinates are replicated per step slot:
+``base`` holds each slot's value at the last consensus and ``drift`` what
+the slot's replica moved since.  A merge group runs `cgs` chunks in order;
+each chunk reads both windows, then adds into the A window, then into the
+B window.  The group ends in a consensus merge: per endpoint, sum the drift
+of its slots in f64 (ascending slot order), scale by 1/R (R = the node's
+step count), add into the f64 node coordinates, broadcast the update into
+``base`` and reset ``drift``.
+
+Each phase has a plain PyTorch version here and a CUDA kernel behind the
+wrappers of ``ops/kernels.py``; the runs call the wrappers, which take
+the plain version for CPU tensors and launch the kernel for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from . import kernels
+from .strata_plan import CHUNK, LANE, P1_PATH, P1_POS, PATH, POS, POSEND, plan_run
+
+_M32 = 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# Pair coins: the reference's splitmix-style hash, in exact uint32 arithmetic
+# ---------------------------------------------------------------------------
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32) without int64 overflow:
+    split c into 16-bit halves (each partial product < 2^48)."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def pair_coins(gchunk: int, device=None) -> torch.Tensor:
+    """(2, CHUNK) int32 coin words of `_pair_coins` for one chunk's hash
+    key `gchunk` (taken mod 2^32), flattened in pair order.  Row 0 picks
+    side a's endpoint, row 1 side b's; only bit 0 is used.  Shifts are
+    logical: the words are held as uint32 values in int64."""
+    i = torch.arange(CHUNK, dtype=torch.int64, device=device)
+    key = ((gchunk & _M32) * 0xBB67AE85) & _M32
+    h0 = (_mul32(i, 0x9E3779B9) + key) & _M32
+    rows = []
+    for sel in (0, 1):
+        h = (h0 + sel * 0x6A09E667) & _M32
+        h = _mul32(h ^ (h >> 16), 0x85EBCA6B)
+        h = _mul32(h ^ (h >> 13), 0xC2B2AE35)
+        h = h ^ (h >> 16)
+        rows.append(torch.where(h >= 2**31, h - 2**32, h))
+    return torch.stack(rows).to(torch.int32)
+
+
+def chunk_coins(gl: int, device=None) -> torch.Tensor:
+    """Coins of global chunk `gl`: the key is gl * 1000003 in int32
+    wraparound (past gl = 2147 the product wraps)."""
+    return pair_coins(gl * 1000003, device)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of the four kernels
+# ---------------------------------------------------------------------------
+
+
+def chunks_2d_plain(drift, base, planes, od, eta, cpi: int, g0: int, cgs: int):
+    """Chunks g0..g0+cgs-1 of the 2D scheme, in place on `drift` (4, L) f32.
+
+    base (4, L) f32 [xf, xr, yf, yr]; planes (4, L) i32 [pos, pos_end,
+    handle, path]; od (chunks, 2) i32 [window block, D]; eta (iter_max,)
+    f32, indexed by gl // cpi."""
+    od_h = od.cpu().numpy()
+    pos0, pos1, path = planes[POS], planes[POSEND], planes[PATH]
+    for c in range(cgs):
+        gl = g0 + c
+        o = int(od_h[gl, 0]) * LANE
+        D = int(od_h[gl, 1])
+        A = slice(o, o + CHUNK)
+        B = slice(o + D, o + D + CHUNK)
+        lr = eta[gl // cpi]
+        coins = chunk_coins(gl, drift.device)
+        caf = (coins[0] & 1) == 0
+        cbf = (coins[1] & 1) == 0
+        a = base[:, A] + drift[:, A]
+        b = base[:, B] + drift[:, B]
+        pos_a = torch.where(caf, pos0[A], pos1[A])
+        pos_b = torch.where(cbf, pos0[B], pos1[B])
+        xa = torch.where(caf, a[0], a[1])
+        ya = torch.where(caf, a[2], a[3])
+        xb = torch.where(cbf, b[0], b[1])
+        yb = torch.where(cbf, b[2], b[3])
+        valid = (path[A] == path[B]) & (path[A] >= 0)
+        term = torch.clamp_min((pos_a - pos_b).abs().to(torch.float32), 1e-9)
+        mu = torch.clamp_max(lr / term, 1.0)
+        dx = xa - xb
+        dx = torch.where(dx == 0.0, 1e-9, dx)
+        dy = ya - yb
+        mag = torch.sqrt(dx * dx + dy * dy)
+        delta = mu * (mag - term) * 0.5
+        r = torch.where(valid, delta / mag, 0.0)
+        rx = r * dx
+        ry = r * dy
+        zero = torch.zeros_like(rx)
+        drift[:, A] += torch.stack([
+            torch.where(caf, -rx, zero), torch.where(caf, zero, -rx),
+            torch.where(caf, -ry, zero), torch.where(caf, zero, -ry),
+        ])
+        drift[:, B] += torch.stack([
+            torch.where(cbf, rx, zero), torch.where(cbf, zero, rx),
+            torch.where(cbf, ry, zero), torch.where(cbf, zero, ry),
+        ])
+
+
+def chunks_1d_plain(drift, base, planes, od, eta, cpi: int, g0: int, cgs: int):
+    """Chunks g0..g0+cgs-1 of the 1D scheme, in place on `drift` (1, L) f32.
+
+    planes (3, L) i32 [pos, handle, path].  No coins; a pair is valid only
+    if also pos_a != pos_b, and its weight is 1/d."""
+    od_h = od.cpu().numpy()
+    pos, path = planes[P1_POS], planes[P1_PATH]
+    d0, b0 = drift[0], base[0]
+    for c in range(cgs):
+        gl = g0 + c
+        o = int(od_h[gl, 0]) * LANE
+        D = int(od_h[gl, 1])
+        A = slice(o, o + CHUNK)
+        B = slice(o + D, o + D + CHUNK)
+        lr = eta[gl // cpi]
+        xa = b0[A] + d0[A]
+        xb = b0[B] + d0[B]
+        di = pos[A] - pos[B]
+        valid = (path[A] == path[B]) & (path[A] >= 0) & (di != 0)
+        term = di.abs().to(torch.float32)
+        w = torch.ones_like(term) / torch.clamp_min(term, 1e-30)
+        mu = torch.clamp_max(lr * w, 1.0)
+        dx = xa - xb
+        dx = torch.where(dx == 0.0, 1e-9, dx)
+        mag = dx.abs()
+        delta = mu * (mag - term) * 0.5
+        rr = torch.where(valid, delta / mag * dx, 0.0)
+        d0[A] -= rr
+        d0[B] += rr
+
+
+def merge_sum_plain(drift, mi: "MergeIndex", coords, upd):
+    """Consensus sums: per endpoint e, acc = sum of its slots' drift in f64
+    (2D: plane 2c over slots with endpoint e, plus plane 2c+1 over slots
+    whose complement endpoint is e); upd = acc / R; coords += upd.
+
+    coords (nc, E) f64 and upd (nc, E_cap) f64 are written in place."""
+    nc, E = coords.shape
+    dv = drift.to(torch.float64)
+    for ch in range(nc):
+        acc = torch.zeros(mi.ecap, dtype=torch.float64, device=drift.device)
+        if nc == 1:
+            acc.index_add_(0, mi.ep, dv[0])
+        else:
+            acc.index_add_(0, mi.ep, dv[2 * ch])
+            acc_r = torch.zeros_like(acc)
+            acc_r.index_add_(0, mi.ep ^ 1, dv[2 * ch + 1])
+            acc += acc_r
+        u = acc[:E] * mi.recip
+        upd[ch, :E] = u
+        coords[ch] += u
+
+
+def merge_bcast_plain(drift, base, mi: "MergeIndex", upd):
+    """base += f32(upd) of each slot's endpoints; drift = 0."""
+    if upd.shape[0] == 1:
+        base[0] += upd[0][mi.ep].to(torch.float32)
+    else:
+        epr = mi.ep ^ 1
+        base[0] += upd[0][mi.ep].to(torch.float32)
+        base[1] += upd[0][epr].to(torch.float32)
+        base[2] += upd[1][mi.ep].to(torch.float32)
+        base[3] += upd[1][epr].to(torch.float32)
+    drift.zero_()
+
+
+# ---------------------------------------------------------------------------
+# Run state and the 1D/2D runs
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class MergeIndex:
+    """Endpoint maps of the consensus merge, built once per graph.
+
+    ep: i32 (L,) endpoint of every slot's forward replica (2D: the packed
+        handle 2*node+orient, so slot s's complement replica is ep ^ 1;
+        1D: the node); pad slots hold the dummy E (2D: E and E+1).
+    csr_off, csr_slot: i32 CSR of endpoint -> ascending list of the real
+        slots s with ep[s] == endpoint (the kernel's summation order,
+        which is np.bincount's).
+    recip: f64 (E,) 1/R per endpoint (0 for step-less nodes).
+    """
+
+    ep: torch.Tensor
+    csr_off: torch.Tensor
+    csr_slot: torch.Tensor
+    recip: torch.Tensor
+    ecap: int
+
+    @staticmethod
+    def build(g, num_slots: int, one_d: bool, device) -> "MergeIndex":
+        S = g.num_steps
+        handle = g.step_handle.astype(np.int64)
+        node = handle >> 1
+        r = np.bincount(node, minlength=g.num_nodes).astype(np.float64)
+        if one_d:
+            E, key = g.num_nodes, node
+        else:
+            E, key, r = 2 * g.num_nodes, handle, np.repeat(r, 2)
+        ep = np.full(num_slots, E, np.int64)
+        ep[:S] = key
+        order = np.argsort(key, kind="stable")
+        off = np.zeros(E + 1, np.int64)
+        np.cumsum(np.bincount(key, minlength=E), out=off[1:])
+        recip = np.where(r > 0, 1.0 / np.maximum(r, 1), 0.0)
+        t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+        return MergeIndex(
+            ep=t(ep, torch.int32),
+            csr_off=t(off, torch.int32),
+            csr_slot=t(order, torch.int32),
+            recip=t(recip, torch.float64),
+            ecap=E + (1 if one_d else 2),
+        )
+
+
+@dataclass
+class StrataState:
+    """Device tensors of one strata run (see the module docstring)."""
+
+    plan: dict
+    one_d: bool
+    planes: torch.Tensor   # i32 (4 or 3, L)
+    base: torch.Tensor     # f32 (4 or 1, L)
+    drift: torch.Tensor    # f32 (4 or 1, L)
+    od: torch.Tensor       # i32 (chunks, 2)
+    eta: torch.Tensor      # f32 (iter_max,)
+    mi: MergeIndex
+    coords: torch.Tensor   # f64 (2 or 1, E) node coordinates
+    upd: torch.Tensor      # f64 (2 or 1, E_cap) last merge's update
+
+    @staticmethod
+    def build(g, cfg, init: np.ndarray, one_d: bool, device) -> "StrataState":
+        """`init`: (2N, 2) coordinates for 2D, (N,) positions for 1D."""
+        p = plan_run(g, cfg, one_d=one_d)
+        data = p["data"]
+        L = data.num_slots
+        S = g.num_steps
+        if int((p["o_blk"].astype(np.int64) * LANE + CHUNK + p["d_arr"]).max()) > L:
+            raise AssertionError("strata plan: a window runs past the planes")
+        node = (g.step_handle >> 1).astype(np.int64)
+        if one_d:
+            x32 = np.asarray(init, np.float32)
+            base = np.zeros((1, L), np.float32)
+            base[0, :S] = x32[node]
+            coords = x32.astype(np.float64)[None, :]
+        else:
+            c = np.asarray(init, np.float64)
+            c32 = c.astype(np.float32)
+            epf = g.step_handle.astype(np.int64)
+            base = np.zeros((4, L), np.float32)
+            base[0, :S] = c32[epf, 0]
+            base[1, :S] = c32[epf ^ 1, 0]
+            base[2, :S] = c32[epf, 1]
+            base[3, :S] = c32[epf ^ 1, 1]
+            coords = np.ascontiguousarray(c.T)
+        mi = MergeIndex.build(g, L, one_d, device)
+        od = np.stack([p["o_blk"], p["d_arr"]], axis=1).astype(np.int32)
+        t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+        base_t = t(base, torch.float32)
+        return StrataState(
+            plan=p,
+            one_d=one_d,
+            planes=t(data.planes, torch.int32),
+            base=base_t,
+            drift=torch.zeros_like(base_t),
+            od=t(od, torch.int32),
+            eta=t(p["eta_table"], torch.float32),
+            mi=mi,
+            coords=t(coords, torch.float64),
+            upd=torch.zeros((coords.shape[0], mi.ecap), dtype=torch.float64, device=device),
+        )
+
+    def run_group(self, gid: int) -> None:
+        """One merge group: the chunk phase, then the consensus merge."""
+        p = self.plan
+        chunks = kernels.strata_chunks_1d if self.one_d else kernels.strata_chunks_2d
+        chunks(self.drift, self.base, self.planes, self.od, self.eta,
+               p["cpi"], gid * p["cgs"], p["cgs"])
+        kernels.strata_merge_sum(self.drift, self.mi, self.coords, self.upd)
+        kernels.strata_merge_bcast(self.drift, self.base, self.mi, self.upd)
+
+    def run(self) -> None:
+        for gid in range(self.plan["groups"]):
+            self.run_group(gid)
+
+
+def path_sgd_2d_strata(g, coords0, cfg, device) -> torch.Tensor:
+    """2D strata run from (2N, 2) `coords0`; f64 (2N, 2) on `device`."""
+    st = StrataState.build(g, cfg, np.asarray(coords0, np.float64), False,
+                           torch.device(device))
+    st.run()
+    return st.coords.T.contiguous()
+
+
+def path_sgd_1d_strata(g, cfg, x0, device) -> torch.Tensor:
+    """1D strata run from `x0` (default: node offsets); f64 (N,) on
+    `device`."""
+    x0v = g.node_offset.astype(np.float32) if x0 is None else np.asarray(x0, np.float32)
+    st = StrataState.build(g, cfg, x0v, True, torch.device(device))
+    st.run()
+    return st.coords[0].clone()

@@ -1,0 +1,146 @@
+"""The port's strata PG-SGD (plain PyTorch versions, CPU) against odgi_tpu's
+strata twins path_sgd_2d_strata_xla / path_sgd_1d_strata_xla.
+
+Both run the same plan, the same coins and the same update order, and sum
+the consensus in f64 in the same order; only the order of f32 operations
+inside XLA's fused chunk body may differ.  Tolerances (max |delta| over the
+coordinate scale):
+- short runs (iter_max 2-3, min_term_updates 3*1024): 1e-6;
+- the default schedules (30 iterations 2D, 100 1D): 1e-4, the tolerance
+  tests/test_pallas_sgd.py holds its own kernel to, since many iterations
+  may amplify ulp differences.
+"""
+
+import numpy as np
+import pytest
+
+from odgi_tpu.algorithms.layout import init_layout as j_init_layout
+from odgi_tpu.core.graph import GraphBuilder
+from odgi_tpu.ops import pallas_sgd as ps
+from odgi_tpu.ops import sgd as j_sgd
+
+from odgi_tpu_torch.convert import graph_from_arrays, graph_to_arrays
+from odgi_tpu_torch.ops import sgd, strata_sgd
+
+SHORT_TOL = 1e-6
+DEFAULT_TOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    """3 paths x 1600 steps over 120 nodes (tests/test_pallas_sgd.py)."""
+    rng = np.random.default_rng(7)
+    b = GraphBuilder()
+    for i in range(1, 121):
+        b.add_node(i, b"ACGT" * int(rng.integers(1, 5)))
+    for i in range(1, 120):
+        b.add_edge(i, False, i + 1, False)
+    for pi in range(3):
+        p = b.add_path(f"p{pi}")
+        n = 1
+        for _ in range(1600):
+            b.append_step(p, n, bool(rng.integers(0, 2)))
+            n = int(np.clip(n + rng.integers(-2, 3), 1, 120))
+    gj = b.build()
+    return gj, graph_from_arrays(graph_to_arrays(gj))
+
+
+def _rel_err(port, twin):
+    return np.abs(port - twin).max() / (np.abs(twin).max() + 1)
+
+
+@pytest.mark.parametrize("kw,tol", [
+    (dict(iter_max=2, min_term_updates=3 * 1024), SHORT_TOL),
+    (dict(iter_max=3, min_term_updates=3 * 1024), SHORT_TOL),
+    ({}, DEFAULT_TOL),
+], ids=["iter2", "iter3", "default"])
+def test_strata_2d_matches_twin(graphs, kw, tol):
+    gj, gt = graphs
+    c0 = j_init_layout(gj, "d")
+    twin = np.asarray(ps.path_sgd_2d_strata_xla(gj, c0, j_sgd.derive_config_2d(gj, **kw)))
+    port = sgd.path_sgd_2d(gt, c0, sgd.derive_config_2d(gt, **kw), device="cpu").numpy()
+    assert port.shape == twin.shape and port.dtype == np.float64
+    assert np.isfinite(port).all()
+    assert _rel_err(port, twin) <= tol
+    assert np.abs(port - c0).max() > 1.0  # it moved
+
+
+@pytest.mark.parametrize("kw,tol", [
+    (dict(iter_max=2, min_term_updates=3 * 1024), SHORT_TOL),
+    (dict(iter_max=3, min_term_updates=3 * 1024), SHORT_TOL),
+    ({}, DEFAULT_TOL),
+], ids=["iter2", "iter3", "default"])
+def test_strata_1d_matches_twin(graphs, kw, tol):
+    gj, gt = graphs
+    twin = np.asarray(ps.path_sgd_1d_strata_xla(gj, j_sgd.derive_config_1d(gj, **kw)))
+    port = sgd.path_sgd_1d(gt, sgd.derive_config_1d(gt, **kw), device="cpu").numpy()
+    assert port.shape == twin.shape and np.isfinite(port).all()
+    assert _rel_err(port, twin) <= tol
+    assert np.abs(port - gt.node_offset).max() > 1.0
+
+
+def test_strata_1d_from_x0(graphs):
+    gj, gt = graphs
+    x0 = np.random.default_rng(1).permutation(gj.num_nodes).astype(np.float64) * 8
+    kw = dict(iter_max=2, min_term_updates=3 * 1024)
+    twin = np.asarray(ps.path_sgd_1d_strata_xla(gj, j_sgd.derive_config_1d(gj, **kw), x0=x0))
+    port = sgd.path_sgd_1d(gt, sgd.derive_config_1d(gt, **kw), x0=x0, device="cpu").numpy()
+    assert _rel_err(port, twin) <= SHORT_TOL
+
+
+def test_merge_plain_matches_bincount(graphs):
+    """The plain merge (f64 index_add_) equals the twin's np.bincount sums
+    exactly on random drift, and the broadcast resets the drift."""
+    import torch
+
+    _, gt = graphs
+    cfg = sgd.derive_config_2d(gt, iter_max=1, min_term_updates=3 * 1024)
+    c0 = j_init_layout(gt, "d")
+    st = strata_sgd.StrataState.build(gt, cfg, c0, False, torch.device("cpu"))
+    rng = np.random.default_rng(2)
+    S = gt.num_steps
+    drift = np.zeros(st.drift.shape, np.float32)
+    drift[:, :S] = rng.normal(size=(4, S)).astype(np.float32)
+    st.drift.copy_(torch.from_numpy(drift))
+    coords0 = st.coords.clone()
+    strata_sgd.merge_sum_plain(st.drift, st.mi, st.coords, st.upd)
+
+    node = gt.step_handle >> 1
+    epf = np.full(st.drift.shape[1], 2 * gt.num_nodes, np.int64)
+    epf[:S] = gt.step_handle
+    dv = drift.astype(np.float64)
+    cap = 2 * gt.num_nodes + 2
+    r = np.repeat(np.bincount(node, minlength=gt.num_nodes), 2).astype(np.float64)
+    recip = np.where(r > 0, 1.0 / np.maximum(r, 1), 0.0)
+    for ch in range(2):
+        acc = np.bincount(epf, dv[2 * ch], minlength=cap)
+        acc += np.bincount(epf ^ 1, dv[2 * ch + 1], minlength=cap)
+        upd = acc[: 2 * gt.num_nodes] * recip
+        assert np.array_equal(st.upd[ch, : 2 * gt.num_nodes].numpy(), upd)
+        assert np.array_equal(st.coords[ch].numpy(), coords0[ch].numpy() + upd)
+
+    base0 = st.base.clone()
+    strata_sgd.merge_bcast_plain(st.drift, st.base, st.mi, st.upd)
+    assert not st.drift.any()
+    want = base0[0].numpy() + st.upd[0].numpy()[epf].astype(np.float32)
+    assert np.array_equal(st.base[0].numpy(), want)
+
+
+def test_out_of_slice_paths_raise(graphs):
+    _, gt = graphs
+    c0 = j_init_layout(gt, "d")
+    cfg = sgd.derive_config_2d(gt, iter_max=1)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        sgd.path_sgd_2d(gt, c0, sgd.derive_config_2d(gt, delta=0.1), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        sgd.path_sgd_2d(gt, c0, cfg, pin_nodes=np.zeros(gt.num_nodes, bool), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        sgd.path_sgd_1d(gt, sgd.derive_config_1d(gt), snapshot_cb=print, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        sgd.path_sgd_1d(gt, sgd.derive_config_1d(gt), use_paths=[0], device="cpu")
+    small = graph_from_arrays(dict(graph_to_arrays(gt)) | dict(
+        path_names=("p0",), path_circular=np.zeros(1, bool),
+        path_offset=np.array([0, 100]), step_handle=gt.step_handle[:100],
+        step_pos=gt.step_pos[:100]))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        sgd.path_sgd_1d(small, device="cpu")
