@@ -6,19 +6,31 @@
 Phases, each printing one line or more:
   1. device: the card's name, the device count, nvidia-smi's name and
      power limit;
-  2. build: compile csrc/strata_sgd.cu and print ptxas's registers, shared
-     memory and spills per kernel;
-  3. kernels against their plain PyTorch versions on the card, group by
-     group over an iter_max=2 plan of the smoke graph (1D and 2D), with the
-     stated tolerances;
-  4. the main path at the default schedules through the entry points:
+  2. build: compile every csrc/*.cu (one nvcc each, all at once) and print
+     ptxas's registers, shared memory and spills per kernel;
+  3. the resident kernels against their plain PyTorch versions on the card,
+     group by group over an iter_max=2 plan of the smoke graph (1D and 2D),
+     with the stated tolerances;
+  4. the smoke path at the default schedules through the entry points:
      synthetic GFA (1,500,000 steps = 30 paths x 50,000 steps over 10,000
      nodes) -> parse_gfa -> sort_pipeline("Ygs") -> layout_graph ->
      save_layout/load_layout (.lay) -> sum_of_path_node_distances, with the
-     quality and plan gates.
-The line before the card line is one JSON object with every kernel's
-launches, error, times and bound; the last line is the ok/device object.
-Any failed phase exits non-zero and prints no ok line.
+     quality and plan gates (the resident route);
+  5. the stream and blocked kernels against their plain versions and
+     against the resident kernels, on short plans (a few hundred chunks a
+     group) of the XL and the 1M-node graphs;
+  6. the XL path: 5,000,000 steps (100 paths x 50,000 over 10,000 nodes)
+     -> sort_pipeline("Ygs") -> layout_graph -> .lay -> stats, on the "xl"
+     route in 1D and 2D; the layout forced onto the "resident" route gives
+     the same coordinates, bit for bit;
+  7. the 1M-node path (tools/bigscale_bench.py --shuffle --quality):
+     10,000,000 steps (10 paths over 1,000,000 nodes) -> sort_pipeline("Y")
+     and layout_graph on the "xxl" route, gated on BIGSCALE_r05.json's start
+     values and quality, then sort_pipeline("gs") and a .lay round trip.
+Every path runs with the launch counts set to 0 just before it and read
+just after.  The line before the card line is one JSON object with every
+kernel's launches, error, times and bound; the last line is the ok/device
+object.  Any failed phase exits non-zero and prints no ok line.
 """
 
 from __future__ import annotations
@@ -34,15 +46,15 @@ import numpy as np
 import torch
 
 import odgi_tpu_torch as ot
-from odgi_tpu_torch.algorithms import groom, topological
-from odgi_tpu_torch.ops import kernels, strata_plan, strata_sgd
+from odgi_tpu_torch.algorithms import groom, layout, path_sgd_sort, topological
+from odgi_tpu_torch.ops import kernels, strata_plan, strata_route, strata_sgd, strata_xxl
 from odgi_tpu_torch.ops.sgd import derive_config_1d, derive_config_2d
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 F64_OPS_PER_S = 34e12       # H100 SXM f64 outside the tensor cores
 
-# Calibration of the gates: odgi_tpu's CPU twins on this exact graph,
+# Calibration of the smoke gates: odgi_tpu's CPU twins on this exact graph,
 # through the same pipeline (GFA write + parse, twin 1D, groom, topological
 # order, init_layout("d"), twin 2D).
 TWIN = dict(nt_before=1556.97, nt_after=0.6777, stress_before=97.73,
@@ -57,14 +69,43 @@ MERGE_TOL = 1e-12            # max |delta| / scale, f64 merges
 LAY_TOL = 1e-9               # .lay round trip, relative to the scale
 
 SMOKE_STEPS, SMOKE_NODES, SMOKE_PATH_STEPS = 1_500_000, 10_000, 50_000
+XL_STEPS, XL_NODES, XL_PATH_STEPS = 5_000_000, 10_000, 50_000
+BIG_STEPS, BIG_NODES, BIG_PATH_STEPS = 10_000_000, 1_000_000, 1_000_000
+# BIGSCALE_r05.json (odgi_tpu on a TPU v5e, the same graph and start):
+# only the quality numbers carry over.
+BIGSCALE = dict(nt_before=649_736.0405, nt_after=1.4836,
+                stress_before=324_911.5038, stress_after=1.2882)
+START_RTOL = 1e-6
+BIG_NT_AFTER_MAX = 1.558       # BIGSCALE's 1.4836 plus 5%
+BIG_STRESS_AFTER_MAX = 1.353   # BIGSCALE's 1.2882 plus 5%
+SHORT_TERMS = 1024 * 1024      # short plans: a few hundred chunks a group
 
+RESIDENT = ("strata_chunks_2d", "strata_chunks_1d", "strata_merge_sum",
+            "strata_merge_bcast")
+STREAM = ("strata_chunks_2d_stream", "strata_chunks_1d_stream")
+BLOCKED = ("strata_merge_sum_blocked", "strata_merge_bcast_blocked")
 REPLACES = {
     "strata_chunks_2d": "odgi_tpu/ops/pallas_sgd.py:1105",
     "strata_chunks_1d": "odgi_tpu/ops/pallas_sgd.py:1158",
     "strata_merge_sum": "odgi_tpu/ops/pallas_sgd.py:922",
     "strata_merge_bcast": "odgi_tpu/ops/pallas_sgd.py:922",
+    "strata_chunks_2d_stream": "odgi_tpu/ops/pallas_sgd_xl.py:363",
+    "strata_chunks_1d_stream": "odgi_tpu/ops/pallas_sgd_xl.py:795",
+    "strata_merge_sum_blocked": "odgi_tpu/ops/pallas_sgd_xxl.py:212",
+    "strata_merge_bcast_blocked": "odgi_tpu/ops/pallas_sgd_xxl.py:212",
 }
-SOURCE = "odgi_tpu_torch/csrc/strata_sgd.cu"
+ALSO_REPLACES = {
+    "strata_chunks_2d_stream": "odgi_tpu/ops/pallas_sgd_xxl.py:212",
+    "strata_chunks_1d_stream": "odgi_tpu/ops/pallas_sgd_xxl.py:632",
+    "strata_merge_sum_blocked": "odgi_tpu/ops/pallas_sgd_xxl.py:632",
+    "strata_merge_bcast_blocked": "odgi_tpu/ops/pallas_sgd_xxl.py:632",
+}
+# Kernels with one PyTorch call that computes the same function (an f64
+# index_add_), timed as a yardstick only.
+LIBRARY = ("strata_merge_sum", "strata_merge_sum_blocked")
+SOURCES = {**{n: "odgi_tpu_torch/csrc/strata_sgd.cu" for n in RESIDENT},
+           **{n: "odgi_tpu_torch/csrc/strata_stream.cu" for n in STREAM},
+           **{n: "odgi_tpu_torch/csrc/strata_blocked.cu" for n in BLOCKED}}
 
 
 def fail(msg: str) -> None:
@@ -77,7 +118,7 @@ def say(tag: str, **kw) -> None:
 
 
 # ---------------------------------------------------------------------------
-# The synthetic graph (the generator of tools/bigscale_bench.py, as arrays)
+# The synthetic graphs (the generator of tools/bigscale_bench.py, as arrays)
 # ---------------------------------------------------------------------------
 
 
@@ -116,10 +157,15 @@ def synth_graph(num_steps: int, num_nodes: int, path_steps: int, seed: int = 11)
     ))
 
 
-def write_smoke_gfa(path: str, steps: int, nodes: int, path_steps: int) -> None:
+def shuffled_graph(steps: int, nodes: int, path_steps: int):
+    """`synth_graph` with node ids shuffled by default_rng(5), as
+    tools/bigscale_bench.py --shuffle does."""
     g = synth_graph(steps, nodes, path_steps)
-    g = g.apply_ordering(np.random.default_rng(5).permutation(g.num_nodes))
-    ot.write_gfa(g, path)
+    return g.apply_ordering(np.random.default_rng(5).permutation(g.num_nodes))
+
+
+def write_smoke_gfa(path: str, steps: int, nodes: int, path_steps: int) -> None:
+    ot.write_gfa(shuffled_graph(steps, nodes, path_steps), path)
 
 
 # ---------------------------------------------------------------------------
@@ -166,15 +212,19 @@ def touched_slots(od: np.ndarray, g0: int, cgs: int) -> int:
     return int(run_hi[-1] - lo[0] - gaps.sum())
 
 
-def chunk_bound(p: dict, gid: int, one_d: bool) -> dict:
-    """Bytes: per touched slot, the i32 planes read (2D: pos, pos_end, path;
-    1D: pos, path), the f32 base read, the f32 drift read and written; plus
-    (o, D) per chunk.  Operations: about 25 f32 operations per pair."""
+def chunk_bounds(p: dict, one_d: bool) -> list:
+    """Per group.  Bytes: per touched slot, the i32 planes read (2D: pos,
+    pos_end, path; 1D: pos, path), the f32 base read, the f32 drift read and
+    written; plus (o, D) per chunk (and its sync flag on the stream route).
+    Operations: about 25 f32 operations per pair."""
     od = np.stack([p["o_blk"], p["d_arr"]], axis=1)
-    n = touched_slots(od, gid * p["cgs"], p["cgs"])
     per_slot = 20 if one_d else 60
-    return dict(bytes=n * per_slot + 8 * p["cgs"],
-                ops=25 * p["cgs"] * strata_plan.CHUNK, ops_rate=F32_OPS_PER_S)
+    out = []
+    for gid in range(p["groups"]):
+        n = touched_slots(od, gid * p["cgs"], p["cgs"])
+        out.append(dict(bytes=n * per_slot + 12 * p["cgs"],
+                        ops=25 * p["cgs"] * strata_plan.CHUNK, ops_rate=F32_OPS_PER_S))
+    return out
 
 
 def merge_sum_bound(g, one_d: bool) -> dict:
@@ -188,10 +238,9 @@ def merge_sum_bound(g, one_d: bool) -> dict:
     return dict(bytes=nbytes, ops=S * planes + 2 * nc * E, ops_rate=F64_OPS_PER_S)
 
 
-def merge_bcast_bound(g, p: dict, one_d: bool) -> dict:
+def merge_bcast_bound(g, L: int, one_d: bool) -> dict:
     """Every slot's endpoint, base read and written, drift written, the
     update table read once."""
-    L = p["data"].num_slots
     nc, planes = (1, 1) if one_d else (2, 4)
     ecap = g.num_nodes + 1 if one_d else 2 * g.num_nodes + 2
     nbytes = L * 4 + L * planes * 4 * 3 + nc * ecap * 8
@@ -204,9 +253,40 @@ def bound_ms(b: dict):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def schedule_stats(g, one_d: bool) -> dict:
+    """K, node blocks and tile reads per tile of the XXL schedule, with the
+    relabel by first visit (what the run uses) and without it."""
+    S = g.num_steps
+    tiles = -(-S // strata_xxl.TILE)
+    g_run, _ = strata_xxl.relabel(g)
+    _, K, nb = strata_xxl.build_schedule(g_run, strata_xxl.XXL_BS, one_d)
+    _, K_raw, _ = strata_xxl.build_schedule(g, strata_xxl.XXL_BS, one_d)
+    planes = 1 if one_d else 4
+    return dict(bs=strata_xxl.XXL_BS, K=K, node_blocks=nb, tiles=tiles,
+                tile_reads_per_tile=K / tiles, K_without_relabel=K_raw,
+                tile_reads_per_tile_without_relabel=K_raw / tiles,
+                sched_tile_bytes=K * strata_xxl.TILE * planes * 4)
+
+
 # ---------------------------------------------------------------------------
-# Phase 3: each kernel against its plain version, group by group
+# Records: per kernel and per "<path>/<dim>" key
 # ---------------------------------------------------------------------------
+
+
+class Record:
+    """Errors, plain and library times of the comparison phases; launch
+    times of the counted paths; bounds per counted launch."""
+
+    def __init__(self):
+        self.err = {n: {} for n in kernels.NAMES}
+        self.plain_ms = {n: {} for n in kernels.NAMES}
+        self.library_ms = {n: {} for n in kernels.NAMES}
+        self.events = {n: {} for n in kernels.NAMES}
+        self.bounds = {n: {} for n in kernels.NAMES}
+        self.launches = {n: {} for n in kernels.NAMES}
+
+    def add(self, table: str, name: str, key: str, value) -> None:
+        getattr(self, table)[name].setdefault(key, []).append(value)
 
 
 def library_merge_sum(st) -> float:
@@ -228,7 +308,22 @@ def library_merge_sum(st) -> float:
     return t.stop().ms()
 
 
-def compare_group(st, gid: int, rec: dict, tag: str) -> None:
+def timed(fn, *args) -> float:
+    t = Timer()
+    fn(*args)
+    return t.stop().ms()
+
+
+def rel_err(a, b, scale: float) -> float:
+    return float((a - b).abs().max()) / scale
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the resident kernels against their plain versions, group by group
+# ---------------------------------------------------------------------------
+
+
+def compare_group(st, gid: int, rec: Record, key: str) -> None:
     """Run group `gid` through each kernel and its plain version on the same
     inputs, check them, and continue from the kernel's state."""
     p = st.plan
@@ -239,91 +334,199 @@ def compare_group(st, gid: int, rec: dict, tag: str) -> None:
     name = "strata_chunks_1d" if st.one_d else "strata_chunks_2d"
 
     d_k, d_p = st.drift.clone(), st.drift.clone()
-    t = Timer()
-    chunks(d_k, *args)
-    k_ms = t.stop().ms()
-    t = Timer()
-    plain(d_p, *args)
-    p_ms = t.stop().ms()
+    k_ms = timed(chunks, d_k, *args)
+    p_ms = timed(plain, d_p, *args)
     err = float((d_k - d_p).abs().max())
-    rec[name]["err"].append(err)
-    rec[name]["plain_ms"][tag].append(p_ms)
+    rec.add("err", name, key, err)
+    rec.add("plain_ms", name, key, p_ms)
     if not err / scale <= CHUNK_TOL:
         fail(f"{name} group {gid}: max|drift delta|/scale {err / scale:.3e} > {CHUNK_TOL}")
 
     st.drift = d_k
-    c_k, u_k = st.coords.clone(), st.upd.clone()
-    c_p, u_p = st.coords.clone(), st.upd.clone()
-    t = Timer()
-    kernels.strata_merge_sum(d_k, st.mi, c_k, u_k)
-    s_ms = t.stop().ms()
-    t = Timer()
-    strata_sgd.merge_sum_plain(d_k, st.mi, c_p, u_p)
-    sp_ms = t.stop().ms()
-    cscale = float(c_p.abs().max()) + 1.0
-    err = max(float((c_k - c_p).abs().max()), float((u_k - u_p).abs().max()))
-    rec["strata_merge_sum"]["err"].append(err)
-    rec["strata_merge_sum"]["plain_ms"][tag].append(sp_ms)
-    rec["strata_merge_sum"]["library_ms"][tag].append(library_merge_sum(st))
-    if not err / cscale <= MERGE_TOL:
-        fail(f"strata_merge_sum group {gid}: max|delta|/scale {err / cscale:.3e} > {MERGE_TOL}")
-
-    b_k, b_p = st.base.clone(), st.base.clone()
-    d_k2, d_p2 = d_k.clone(), d_k.clone()
-    t = Timer()
-    kernels.strata_merge_bcast(d_k2, b_k, st.mi, u_k)
-    b_ms = t.stop().ms()
-    t = Timer()
-    strata_sgd.merge_bcast_plain(d_p2, b_p, st.mi, u_k)
-    bp_ms = t.stop().ms()
-    err = max(float((b_k - b_p).abs().max()), float(d_k2.abs().max()))
-    rec["strata_merge_bcast"]["err"].append(err)
-    rec["strata_merge_bcast"]["plain_ms"][tag].append(bp_ms)
-    if not err / scale <= MERGE_TOL:
-        fail(f"strata_merge_bcast group {gid}: max|delta|/scale {err / scale:.3e} > {MERGE_TOL}")
-
-    st.drift, st.base, st.coords, st.upd = d_k2, b_k, c_k, u_k
-    say("kernel_vs_plain", dim=tag, group=gid, chunk_ms=k_ms, chunk_plain_ms=p_ms,
+    s_ms, sp_ms, b_ms, bp_ms = compare_merges(st, gid, rec, key)
+    say("kernel_vs_plain", key=key, group=gid, chunk_ms=k_ms, chunk_plain_ms=p_ms,
         sum_ms=s_ms, sum_plain_ms=sp_ms, bcast_ms=b_ms, bcast_plain_ms=bp_ms)
 
 
+def compare_merges(st, gid: int, rec: Record, key: str):
+    """The CSR merges and their plain versions on the same inputs; continues
+    from the kernels' state.  Returns the four times."""
+    scale = float(st.base.abs().max()) + 1.0
+    d_k = st.drift
+    c_k, u_k = st.coords.clone(), st.upd.clone()
+    c_p, u_p = st.coords.clone(), st.upd.clone()
+    s_ms = timed(kernels.strata_merge_sum, d_k, st.mi, c_k, u_k)
+    sp_ms = timed(strata_sgd.merge_sum_plain, d_k, st.mi, c_p, u_p)
+    cscale = float(c_p.abs().max()) + 1.0
+    err = max(float((c_k - c_p).abs().max()), float((u_k - u_p).abs().max()))
+    rec.add("err", "strata_merge_sum", key, err)
+    rec.add("plain_ms", "strata_merge_sum", key, sp_ms)
+    rec.add("library_ms", "strata_merge_sum", key, library_merge_sum(st))
+    if not err / cscale <= MERGE_TOL:
+        fail(f"strata_merge_sum {key} group {gid}: max|delta|/scale {err / cscale:.3e} "
+             f"> {MERGE_TOL}")
+
+    b_k, b_p = st.base.clone(), st.base.clone()
+    d_k2, d_p2 = d_k.clone(), d_k.clone()
+    b_ms = timed(kernels.strata_merge_bcast, d_k2, b_k, st.mi, u_k)
+    bp_ms = timed(strata_sgd.merge_bcast_plain, d_p2, b_p, st.mi, u_k)
+    err = max(float((b_k - b_p).abs().max()), float(d_k2.abs().max()))
+    rec.add("err", "strata_merge_bcast", key, err)
+    rec.add("plain_ms", "strata_merge_bcast", key, bp_ms)
+    if not err / scale <= MERGE_TOL:
+        fail(f"strata_merge_bcast {key} group {gid}: max|delta|/scale {err / scale:.3e} "
+             f"> {MERGE_TOL}")
+    st.drift, st.base, st.coords, st.upd = d_k2, b_k, c_k, u_k
+    return s_ms, sp_ms, b_ms, bp_ms
+
+
 def warm_up(st) -> None:
-    """One untimed call of every kernel and plain version on copies, so
-    that no timed call pays for module loading or first-use set-up."""
+    """One untimed call of every kernel and plain version of the state's
+    route on copies, so that no timed call pays for first-use set-up."""
     p = st.plan
-    args = (st.base, st.planes, st.od, st.eta, p["cpi"], 0, 1)
-    chunks = kernels.strata_chunks_1d if st.one_d else kernels.strata_chunks_2d
+    args = (st.base, st.planes, st.od)
+    tail = (st.eta, p["cpi"], 0, 1)
     plain = strata_sgd.chunks_1d_plain if st.one_d else strata_sgd.chunks_2d_plain
-    chunks(st.drift.clone(), *args)
-    plain(st.drift.clone(), *args)
+    chunks = kernels.strata_chunks_1d if st.one_d else kernels.strata_chunks_2d
+    chunks(st.drift.clone(), *args, *tail)
+    plain(st.drift.clone(), *args, *tail)
     for merge in (kernels.strata_merge_sum, strata_sgd.merge_sum_plain):
         merge(st.drift, st.mi, st.coords.clone(), st.upd.clone())
     for bcast in (kernels.strata_merge_bcast, strata_sgd.merge_bcast_plain):
         bcast(st.drift.clone(), st.base.clone(), st.mi, st.upd)
+    if st.route != "resident":
+        stream = (kernels.strata_chunks_1d_stream if st.one_d
+                  else kernels.strata_chunks_2d_stream)
+        stream(st.drift.clone(), *args, st.sync, *tail)
+    if st.route == "xxl":
+        kernels.strata_merge_sum_blocked(st.drift, st.mi, st.bsch, st.coords.clone(),
+                                         st.upd.clone())
+        kernels.strata_merge_bcast_blocked(st.drift.clone(), st.base.clone(), st.mi,
+                                           st.bsch, st.upd)
     torch.cuda.synchronize()
 
 
-def phase_kernels(g, dev) -> dict:
-    rec = {n: dict(err=[], plain_ms={"1d": [], "2d": []},
-                   library_ms={"1d": [], "2d": []}) for n in kernels.NAMES}
+def phase_kernels(g, dev, rec: Record) -> None:
     st1 = strata_sgd.StrataState.build(
         g, derive_config_1d(g, iter_max=2), g.node_offset.astype(np.float32), True, dev)
     st2 = strata_sgd.StrataState.build(
         g, derive_config_2d(g, iter_max=2), ot.init_layout(g, "d"), False, dev)
-    for st, tag in ((st1, "1d"), (st2, "2d")):
+    for st, key in ((st1, "smoke/1d"), (st2, "smoke/2d")):
         warm_up(st)
         for gid in range(st.plan["groups"]):
-            compare_group(st, gid, rec, tag)
+            compare_group(st, gid, rec, key)
         if not bool(torch.isfinite(st.coords).all()):
-            fail(f"{tag} coordinates not finite after the comparison run")
+            fail(f"{key} coordinates not finite after the comparison run")
     torch.cuda.synchronize()
-    say("kernels_vs_plain", **{n: dict(max_abs_err=max(r["err"]))
-                               for n, r in rec.items()})
-    return rec
+    say("kernels_vs_plain", **{n: dict(max_abs_err=max(x for v in rec.err[n].values()
+                                                       for x in v))
+                               for n in RESIDENT})
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the main path
+# Phase 5: the stream and blocked kernels against their plain versions and
+# against the resident kernels
+# ---------------------------------------------------------------------------
+
+
+def compare_stream_group(st, gid: int, rec: Record, key: str) -> None:
+    """Group `gid` through the stream chunk kernel, the resident chunk
+    kernel and the plain version on the same inputs; the stream kernel must
+    equal the resident one exactly and the plain one within CHUNK_TOL.  On
+    the "xxl" route the same for the blocked merges (the plain versions on
+    group 0 only).  Continues from the new kernels' state."""
+    p = st.plan
+    args = (st.base, st.planes, st.od)
+    tail = (st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
+    scale = float(st.base.abs().max()) + 1.0
+    if st.one_d:
+        name, stream, resident = ("strata_chunks_1d_stream", kernels.strata_chunks_1d_stream,
+                                  kernels.strata_chunks_1d)
+        plain = strata_sgd.chunks_1d_plain
+    else:
+        name, stream, resident = ("strata_chunks_2d_stream", kernels.strata_chunks_2d_stream,
+                                  kernels.strata_chunks_2d)
+        plain = strata_sgd.chunks_2d_plain
+    d_s, d_r, d_p = st.drift.clone(), st.drift.clone(), st.drift.clone()
+    s_ms = timed(stream, d_s, *args, st.sync, *tail)
+    r_ms = timed(resident, d_r, *args, *tail)
+    p_ms = timed(plain, d_p, *args, *tail)
+    if not torch.equal(d_s, d_r):
+        fail(f"{name} {key} group {gid}: differs from the resident kernel "
+             f"(max {float((d_s - d_r).abs().max()):.3e})")
+    err = float((d_s - d_p).abs().max())
+    rec.add("err", name, key, err)
+    rec.add("plain_ms", name, key, p_ms)
+    if not err / scale <= CHUNK_TOL:
+        fail(f"{name} {key} group {gid}: max|drift delta|/scale {err / scale:.3e} > {CHUNK_TOL}")
+    line = dict(key=key, group=gid, chunk_ms=s_ms, resident_chunk_ms=r_ms, chunk_plain_ms=p_ms,
+                sync_ones=int(st.sync[gid * p["cgs"]:(gid + 1) * p["cgs"]].sum()), cgs=p["cgs"])
+    st.drift = d_s
+
+    if st.route != "xxl":  # the XL route merges with the CSR kernels
+        ms = compare_merges(st, gid, rec, key)
+        say("stream_vs_plain", **line, **dict(zip(
+            ("sum_ms", "sum_plain_ms", "bcast_ms", "bcast_plain_ms"), ms)))
+        return
+
+    c_b, u_b, c_k, u_k = (t.clone() for t in (st.coords, st.upd, st.coords, st.upd))
+    line["sum_ms"] = timed(kernels.strata_merge_sum_blocked, st.drift, st.mi, st.bsch, c_b, u_b)
+    line["resident_sum_ms"] = timed(kernels.strata_merge_sum, st.drift, st.mi, c_k, u_k)
+    if not (torch.equal(c_b, c_k) and torch.equal(u_b, u_k)):
+        fail(f"strata_merge_sum_blocked {key} group {gid}: differs from strata_merge_sum")
+    cscale = float(c_k.abs().max()) + 1.0
+    if gid == 0:
+        c_p, u_p = st.coords.clone(), st.upd.clone()
+        sp_ms = timed(strata_sgd.merge_sum_blocked_plain, st.drift, st.mi, st.bsch, c_p, u_p)
+        err = max(float((c_b - c_p).abs().max()), float((u_b - u_p).abs().max()))
+        rec.add("err", "strata_merge_sum_blocked", key, err)
+        rec.add("plain_ms", "strata_merge_sum_blocked", key, sp_ms)
+        rec.add("library_ms", "strata_merge_sum_blocked", key, library_merge_sum(st))
+        line["sum_plain_ms"] = sp_ms
+        if not err / cscale <= MERGE_TOL:
+            fail(f"strata_merge_sum_blocked {key}: max|delta|/scale {err / cscale:.3e} "
+                 f"> {MERGE_TOL}")
+
+    d_b, b_b, d_k, b_k = (t.clone() for t in (st.drift, st.base, st.drift, st.base))
+    line["bcast_ms"] = timed(kernels.strata_merge_bcast_blocked, d_b, b_b, st.mi, st.bsch, u_b)
+    line["resident_bcast_ms"] = timed(kernels.strata_merge_bcast, d_k, b_k, st.mi, u_b)
+    if not (torch.equal(b_b, b_k) and torch.equal(d_b, d_k)):
+        fail(f"strata_merge_bcast_blocked {key} group {gid}: differs from strata_merge_bcast")
+    if gid == 0:
+        d_p, b_p = st.drift.clone(), st.base.clone()
+        bp_ms = timed(strata_sgd.merge_bcast_blocked_plain, d_p, b_p, st.mi, st.bsch, u_b)
+        err = max(float((b_b - b_p).abs().max()), float((d_b - d_p).abs().max()))
+        rec.add("err", "strata_merge_bcast_blocked", key, err)
+        rec.add("plain_ms", "strata_merge_bcast_blocked", key, bp_ms)
+        line["bcast_plain_ms"] = bp_ms
+        if not err / scale <= MERGE_TOL:
+            fail(f"strata_merge_bcast_blocked {key}: max|delta|/scale {err / scale:.3e} "
+                 f"> {MERGE_TOL}")
+    st.drift, st.base, st.coords, st.upd = d_b, b_b, c_b, u_b
+    say("stream_vs_plain", **line)
+
+
+def phase_stream_kernels(g, label: str, route: str, dev, rec: Record) -> None:
+    for one_d in (True, False):
+        key = f"{label}/{'1d' if one_d else '2d'}"
+        if one_d:
+            cfg = derive_config_1d(g, iter_max=2, min_term_updates=SHORT_TERMS)
+            init = g.node_offset.astype(np.float32)
+        else:
+            cfg = derive_config_2d(g, iter_max=2, min_term_updates=SHORT_TERMS)
+            init = ot.init_layout(g, "d")
+        st = strata_sgd.StrataState.build(g, cfg, init, one_d, dev, route)
+        warm_up(st)
+        for gid in range(st.plan["groups"]):
+            compare_stream_group(st, gid, rec, key)
+        if not bool(torch.isfinite(st.coords).all()):
+            fail(f"{key} coordinates not finite after the comparison run")
+        del st
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# Counted paths: launch counts and per-launch times
 # ---------------------------------------------------------------------------
 
 
@@ -331,23 +534,28 @@ class KernelTimes:
     """Wraps the kernel wrappers the strata runs call with CUDA events, per
     kernel and per 1D/2D shape; the launch counts stay the wrappers' own."""
 
-    def __init__(self):
+    def __init__(self, label: str):
+        self.label = label
         self.events = {n: {"1d": [], "2d": []} for n in kernels.NAMES}
         self.orig = {n: getattr(kernels, n) for n in kernels.NAMES}
 
     def install(self) -> None:
         def wrap(name, fn, shape_of):
-            def timed(*a):
+            def timed_call(*a):
                 t = Timer()
                 fn(*a)
                 self.events[name][shape_of(a)].append(t.stop())
-            return timed
+            return timed_call
 
         dim = {
             "strata_chunks_2d": lambda a: "2d",
             "strata_chunks_1d": lambda a: "1d",
+            "strata_chunks_2d_stream": lambda a: "2d",
+            "strata_chunks_1d_stream": lambda a: "1d",
             "strata_merge_sum": lambda a: "1d" if a[2].shape[0] == 1 else "2d",
             "strata_merge_bcast": lambda a: "1d" if a[3].shape[0] == 1 else "2d",
+            "strata_merge_sum_blocked": lambda a: "1d" if a[3].shape[0] == 1 else "2d",
+            "strata_merge_bcast_blocked": lambda a: "1d" if a[4].shape[0] == 1 else "2d",
         }
         for n in kernels.NAMES:
             setattr(kernels, n, wrap(n, self.orig[n], dim[n]))
@@ -358,6 +566,53 @@ class KernelTimes:
 
     def ms(self, name: str, tag: str):
         return [t.ms() for t in self.events[name][tag]]
+
+    def into(self, rec: Record) -> dict:
+        """Move the times into `rec`; returns the device seconds per tag."""
+        dev_s = {"1d": 0.0, "2d": 0.0}
+        for n in kernels.NAMES:
+            for tag in ("1d", "2d"):
+                ms = self.ms(n, tag)
+                if ms:
+                    rec.events[n][f"{self.label}/{tag}"] = ms
+                    dev_s[tag] += sum(ms) / 1e3
+        return dev_s
+
+
+def counted(label: str, rec: Record, fn):
+    """Run `fn` with the launch counts set to 0 just before and read just
+    after; per-launch times go to `rec`."""
+    times = KernelTimes(label)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times.install()
+    try:
+        out = fn()
+    finally:
+        times.uninstall()
+    torch.cuda.synchronize()
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["sgd_device_s"] = times.into(rec)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    for n, c in out["launches"].items():
+        if c:
+            rec.launches[n][label] = c
+    return out
+
+
+def check_routes(out: dict, label: str, route: str, routes: dict) -> None:
+    """The path took `route` in both dimensions: each of its kernels ran,
+    and no kernel of another route did."""
+    say("routes", path=label, routes=routes)
+    if any(r != route for r in routes.values()):
+        fail(f"{label}: routes {routes}, expected {route!r}")
+    used = {"resident": RESIDENT, "xl": STREAM + RESIDENT[2:], "xxl": STREAM + BLOCKED}[route]
+    for n in kernels.NAMES:
+        c = out["launches"][n]
+        if n in used and c <= 0:
+            fail(f"{label}: {n} was not launched on the {route} route")
+        if n not in used and c != 0:
+            fail(f"{label}: {n} was launched {c} times on the {route} route")
 
 
 def check_plan(g, tag: str, cfg, one_d: bool, host_s: dict) -> dict:
@@ -374,46 +629,84 @@ def check_plan(g, tag: str, cfg, one_d: bool, host_s: dict) -> dict:
     return p
 
 
-def phase_main(gfa_path: str, tmp: str, dev) -> dict:
-    out = {}
+def add_rates(out: dict, p1: dict, p2: dict, sort_key: str) -> None:
+    dev = out["sgd_device_s"]
+    out["valid_pair_updates_per_s_device"] = {
+        "1d": p1["total_valid"] / dev["1d"], "2d": p2["total_valid"] / dev["2d"]}
+    out["valid_pair_updates_per_s_wall"] = {
+        f"1d_{sort_key}": p1["total_valid"] / out[f"{sort_key}_s"],
+        "2d_layout": p2["total_valid"] / out["layout_s"]}
+
+
+def lay_roundtrip(coords: np.ndarray, path: str, dev, out: dict) -> None:
+    t0 = time.perf_counter()
+    ot.save_layout(coords, path, device=dev)
+    back = ot.load_layout(path)
+    out["lay_roundtrip_s"] = time.perf_counter() - t0
+    scale = float(np.abs(coords).max())
+    err = float(np.abs(back - coords).max())
+    say("lay_roundtrip", path=os.path.basename(path), max_abs_err=err, scale=scale,
+        endpoints=int(coords.shape[0]))
+    if back.shape != coords.shape or not err <= LAY_TOL * scale:
+        fail(f".lay round trip error {err} > {LAY_TOL} x {scale}")
+
+
+def add_bounds(rec: Record, label: str, g_1d, p1: dict, g_2d, p2: dict,
+               route: str) -> None:
+    """Bounds of every launch the path made, per kernel and dimension."""
+    suffix = "" if route == "resident" else "_stream"
+    chunks = (f"strata_chunks_1d{suffix}", f"strata_chunks_2d{suffix}")
+    suffix = "_blocked" if route == "xxl" else ""
+    merges = (f"strata_merge_sum{suffix}", f"strata_merge_bcast{suffix}")
+    for (g, p, one_d, tag) in ((g_1d, p1, True, "1d"), (g_2d, p2, False, "2d")):
+        key = f"{label}/{tag}"
+        rec.bounds[chunks[0 if one_d else 1]][key] = chunk_bounds(p, one_d)
+        rec.bounds[merges[0]][key] = [merge_sum_bound(g, one_d)]
+        rec.bounds[merges[1]][key] = [merge_bcast_bound(g, p["data"].num_slots, one_d)]
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the smoke path (resident route)
+# ---------------------------------------------------------------------------
+
+
+def phase_smoke(gfa_path: str, tmp: str, dev, rec: Record) -> dict:
     host_s = {}
-    times = KernelTimes()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    times.install()
-    try:
+    state = {}
+
+    def run():
+        out = {}
         t0 = time.perf_counter()
         g = ot.parse_gfa(gfa_path, device=dev)
         out["parse_s"] = sync_wall(t0)
-        nt0 = ot.sum_of_path_node_distances(g, device=dev).all_nt_space
+        out["nt_before"] = ot.sum_of_path_node_distances(g, device=dev).all_nt_space
         p1 = check_plan(g, "1d", derive_config_1d(g), True, host_s)
 
         t0 = time.perf_counter()
         g2 = ot.sort_pipeline(g, "Ygs", device=dev)
         out["sort_Ygs_s"] = sync_wall(t0)
-        nt1 = ot.sum_of_path_node_distances(g2, device=dev).all_nt_space
+        out["nt_after"] = ot.sum_of_path_node_distances(g2, device=dev).all_nt_space
         p2 = check_plan(g2, "2d", derive_config_2d(g2), False, host_s)
 
         c0 = ot.init_layout(g2, "d")
-        s0 = ot.sum_of_path_node_distances(
+        out["stress_before"] = ot.sum_of_path_node_distances(
             g2, (c0[:, 0], c0[:, 1]), device=dev).all_2d_by_nucleotides
         t0 = time.perf_counter()
         coords = ot.layout_graph(g2, device=dev)
         out["layout_s"] = sync_wall(t0)
-
-        lay = os.path.join(tmp, "smoke.lay")
+        lay_roundtrip(coords, os.path.join(tmp, "smoke.lay"), dev, out)
         t0 = time.perf_counter()
-        ot.save_layout(coords, lay, device=dev)
-        back = ot.load_layout(lay)
-        out["lay_roundtrip_s"] = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        s1 = ot.sum_of_path_node_distances(
+        out["stress_after"] = ot.sum_of_path_node_distances(
             g2, (coords[:, 0], coords[:, 1]), device=dev).all_2d_by_nucleotides
         out["stress_s"] = sync_wall(t0)
-    finally:
-        times.uninstall()
-    out["launches"] = dict(kernels.LAUNCHES)
+        state.update(g=g, g2=g2, p1=p1, p2=p2, coords=coords)
+        return out
+
+    out = counted("smoke", rec, run)
+    g, g2, p1, p2, coords = (state[k] for k in ("g", "g2", "p1", "p2", "coords"))
+    routes = {"1d": strata_route.graph_route(g, derive_config_1d(g), True),
+              "2d": strata_route.graph_route(g2, derive_config_2d(g2), False)}
+    check_routes(out, "smoke", "resident", routes)
     # Host steps of the sort outside the SGD, timed alone on the sorted
     # graph (the same size as the graph the pipeline grooms and orders).
     for name, fn in (("groom", groom.apply_groom),
@@ -422,78 +715,194 @@ def phase_main(gfa_path: str, tmp: str, dev) -> dict:
         fn(g2)
         host_s[name] = time.perf_counter() - t0
     out["host_s"] = host_s
-    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    out.update(nt_before=nt0, nt_after=nt1, stress_before=s0, stress_after=s1)
-
-    ev = {n: {tag: times.ms(n, tag) for tag in ("1d", "2d")} for n in kernels.NAMES}
-    sgd_ms = {tag: sum(sum(ev[n][tag]) for n in kernels.NAMES) for tag in ("1d", "2d")}
-    out["kernel_ms"] = ev
-    out["sgd_device_s"] = {tag: ms / 1e3 for tag, ms in sgd_ms.items()}
-    out["valid_pair_updates_per_s_device"] = {
-        "1d": p1["total_valid"] / (sgd_ms["1d"] / 1e3),
-        "2d": p2["total_valid"] / (sgd_ms["2d"] / 1e3),
-    }
-    out["valid_pair_updates_per_s_wall"] = {
-        "1d_sort_Ygs": p1["total_valid"] / out["sort_Ygs_s"],
-        "2d_layout": p2["total_valid"] / out["layout_s"],
-    }
-    say("main_path", **{k: v for k, v in out.items() if k not in ("kernel_ms",)},
-        twin=TWIN, kernel_ms_sum={n: {t: sum(v) for t, v in d.items()} for n, d in ev.items()})
+    add_rates(out, p1, p2, "sort_Ygs")
+    say("main_path", path="smoke", **out, twin=TWIN)
 
     if not np.isfinite(coords).all():
         fail("layout coordinates not finite")
-    for n in kernels.NAMES:
-        if out["launches"][n] <= 0:
-            fail(f"{n} was not launched on the main path")
-    scale = float(np.abs(coords).max())
-    lay_err = float(np.abs(back - coords).max())
-    say("lay_roundtrip", max_abs_err=lay_err, scale=scale)
-    if back.shape != coords.shape or not lay_err <= LAY_TOL * scale:
-        fail(f".lay round trip error {lay_err} > {LAY_TOL} x {scale}")
-    if not nt1 <= NT_AFTER_MAX:
-        fail(f"nt-distance after Ygs {nt1} > {NT_AFTER_MAX}")
-    if not s1 <= STRESS_AFTER_MAX:
-        fail(f"stress after layout {s1} > {STRESS_AFTER_MAX}")
-    out["bounds"] = {
-        "strata_chunks_1d": {"1d": [chunk_bound(p1, i, True) for i in range(p1["groups"])]},
-        "strata_chunks_2d": {"2d": [chunk_bound(p2, i, False) for i in range(p2["groups"])]},
-        "strata_merge_sum": {"1d": [merge_sum_bound(g, True)],
-                             "2d": [merge_sum_bound(g2, False)]},
-        "strata_merge_bcast": {"1d": [merge_bcast_bound(g, p1, True)],
-                               "2d": [merge_bcast_bound(g2, p2, False)]},
-    }
+    if not out["nt_after"] <= NT_AFTER_MAX:
+        fail(f"nt-distance after Ygs {out['nt_after']} > {NT_AFTER_MAX}")
+    if not out["stress_after"] <= STRESS_AFTER_MAX:
+        fail(f"stress after layout {out['stress_after']} > {STRESS_AFTER_MAX}")
+    add_bounds(rec, "smoke", g, p1, g2, p2, "resident")
     return out
 
 
-def kernel_line(rec: dict, main: dict) -> dict:
-    """One record per kernel: main-path launches and mean time per launch,
-    the bound of those launches, and the plain version's and the library
-    call's time per call, weighted by the main path's 1D/2D launch mix."""
-    bounds = main["bounds"]
+# ---------------------------------------------------------------------------
+# Phase 6: the XL path
+# ---------------------------------------------------------------------------
+
+
+def phase_xl(g, tmp: str, dev, rec: Record) -> dict:
+    state = {}
+
+    def run():
+        out = {}
+        out["nt_before"] = ot.sum_of_path_node_distances(g, device=dev).all_nt_space
+        t0 = time.perf_counter()
+        g2 = ot.sort_pipeline(g, "Ygs", device=dev)
+        out["sort_Ygs_s"] = sync_wall(t0)
+        out["nt_after"] = ot.sum_of_path_node_distances(g2, device=dev).all_nt_space
+        c0 = ot.init_layout(g2, "d")
+        out["stress_before"] = ot.sum_of_path_node_distances(
+            g2, (c0[:, 0], c0[:, 1]), device=dev).all_2d_by_nucleotides
+        t0 = time.perf_counter()
+        coords = ot.layout_graph(g2, device=dev)
+        out["layout_s"] = sync_wall(t0)
+        lay_roundtrip(coords, os.path.join(tmp, "xl.lay"), dev, out)
+        out["stress_after"] = ot.sum_of_path_node_distances(
+            g2, (coords[:, 0], coords[:, 1]), device=dev).all_2d_by_nucleotides
+        state.update(g2=g2, c0=c0, coords=coords)
+        return out
+
+    out = counted("xl", rec, run)
+    g2, c0, coords = state["g2"], state["c0"], state["coords"]
+    cfg1, cfg2 = derive_config_1d(g), derive_config_2d(g2)
+    routes = {"1d": strata_route.graph_route(g, cfg1, True),
+              "2d": strata_route.graph_route(g2, cfg2, False)}
+    check_routes(out, "xl", "xl", routes)
+    p1 = strata_plan.plan_run(g, cfg1, one_d=True)
+    p2 = strata_plan.plan_run(g2, cfg2, one_d=False)
+    add_rates(out, p1, p2, "sort_Ygs")
+    out["plan"] = {tag: dict(cpi=p["cpi"], cgs=p["cgs"], groups=p["groups"],
+                             total_valid=p["total_valid"], slots=p["data"].num_slots)
+                   for tag, p in (("1d", p1), ("2d", p2))}
+
+    # the same layout on the resident route: the same coordinates, bit for bit
+    t0 = time.perf_counter()
+    res = strata_sgd.path_sgd_2d_strata(g2, c0, cfg2, dev, route="resident")
+    out["layout_resident_sgd_s"] = sync_wall(t0)
+    res = layout.pack_components(g2, res.cpu().numpy())
+    out["resident_equal"] = bool(np.array_equal(res, coords))
+    say("main_path", path="xl", **out)
+    if not out["resident_equal"]:
+        fail(f"xl layout differs from the resident route (max {np.abs(res - coords).max()})")
+    if not np.isfinite(coords).all():
+        fail("xl layout coordinates not finite")
+    if not (out["nt_after"] < out["nt_before"] and out["stress_after"] < out["stress_before"]):
+        fail(f"xl quality did not improve: {out}")
+    add_bounds(rec, "xl", g, p1, g2, p2, "xl")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the 1M-node path
+# ---------------------------------------------------------------------------
+
+
+def phase_big(g, tmp: str, dev, rec: Record) -> dict:
+    state = {}
+    host_s = {}
+    c0 = ot.init_layout(g, "d")
+    start = dict(
+        nt_before=ot.sum_of_path_node_distances(g, device=dev).all_nt_space,
+        stress_before=ot.sum_of_path_node_distances(
+            g, (c0[:, 0], c0[:, 1]), device=dev).all_2d_by_nucleotides)
+    say("bigscale_start", **start, bigscale=BIGSCALE)
+    for k, v in start.items():
+        if not abs(v - BIGSCALE[k]) <= START_RTOL * BIGSCALE[k]:
+            fail(f"1M graph {k} {v} != BIGSCALE_r05's {BIGSCALE[k]} (rtol {START_RTOL})")
+
+    def timed_host(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            host_s[name] = time.perf_counter() - t0
+            return r
+        return call
+
+    def run():
+        out = dict(start)
+        t0 = time.perf_counter()
+        gY = ot.sort_pipeline(g, "Y", device=dev)
+        out["sort_Y_s"] = sync_wall(t0)
+        out["nt_after_Y"] = ot.sum_of_path_node_distances(gY, device=dev).all_nt_space
+        t0 = time.perf_counter()
+        coords = ot.layout_graph(g, device=dev)
+        out["layout_s"] = sync_wall(t0)
+        out["stress_after"] = ot.sum_of_path_node_distances(
+            g, (coords[:, 0], coords[:, 1]), device=dev).all_2d_by_nucleotides
+        state.update(gY=gY, coords=coords)
+        return out
+
+    out = counted("big", rec, run)
+    gY, coords = state["gY"], state["coords"]
+    cfg1, cfg2 = derive_config_1d(g), derive_config_2d(g)
+    routes = {"1d": strata_route.graph_route(g, cfg1, True),
+              "2d": strata_route.graph_route(g, cfg2, False)}
+    check_routes(out, "big", "xxl", routes)
+    p1 = strata_plan.plan_run(g, cfg1, one_d=True)
+    p2 = strata_plan.plan_run(g, cfg2, one_d=False)
+    add_rates(out, p1, p2, "sort_Y")
+    out["plan"] = {tag: dict(cpi=p["cpi"], cgs=p["cgs"], groups=p["groups"],
+                             total_valid=p["total_valid"], slots=p["data"].num_slots)
+                   for tag, p in (("1d", p1), ("2d", p2))}
+
+    # "gs" on the Y-sorted graph: host code, no kernel
+    saved = path_sgd_sort.apply_groom, path_sgd_sort.topological_order
+    path_sgd_sort.apply_groom = timed_host("groom", saved[0])
+    path_sgd_sort.topological_order = timed_host("topological_order", saved[1])
+    try:
+        t0 = time.perf_counter()
+        gYgs = ot.sort_pipeline(gY, "gs", device=dev)
+        out["sort_gs_s"] = time.perf_counter() - t0
+    finally:
+        path_sgd_sort.apply_groom, path_sgd_sort.topological_order = saved
+    out["host_s"] = host_s
+    out["nt_after_Ygs"] = ot.sum_of_path_node_distances(gYgs, device=dev).all_nt_space
+    lay_roundtrip(coords, os.path.join(tmp, "big.lay"), dev, out)
+    say("main_path", path="big", **out, bigscale=BIGSCALE)
+
+    if not np.isfinite(coords).all():
+        fail("1M layout coordinates not finite")
+    if not out["nt_after_Y"] <= BIG_NT_AFTER_MAX:
+        fail(f"1M nt-distance after Y {out['nt_after_Y']} > {BIG_NT_AFTER_MAX}")
+    if not out["stress_after"] <= BIG_STRESS_AFTER_MAX:
+        fail(f"1M stress after layout {out['stress_after']} > {BIG_STRESS_AFTER_MAX}")
+    g_run, _ = strata_xxl.relabel(g)
+    add_bounds(rec, "big", g_run, p1, g_run, p2, "xxl")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The kernels line
+# ---------------------------------------------------------------------------
+
+
+def kernel_line(rec: Record) -> dict:
+    """One record per kernel: launches and mean time per launch over every
+    counted path, the bound of those launches, and the plain version's and
+    the library call's time per call on the same graph and dimension
+    (weighted by the launches per path and dimension), and the same per
+    path."""
+    mean = lambda xs: sum(xs) / len(xs) if xs else None
     out = []
     for n in kernels.NAMES:
-        ev = main["kernel_ms"][n]
-        counts = {tag: len(ev[tag]) for tag in ("1d", "2d")}
-        launches = main["launches"][n]
-        mean = lambda xs: sum(xs) / len(xs) if xs else 0.0
-        w = lambda per_tag: sum(counts[t] * per_tag[t] for t in counts) / launches
-        ms = sum(sum(v) for v in ev.values()) / launches
-        b_ms, b_by = {}, {}
-        for tag, bl in bounds[n].items():
+        ev = rec.events[n]
+        launches = sum(len(v) for v in ev.values())
+        if launches == 0 or launches != sum(rec.launches[n].values()):
+            fail(f"{n}: {launches} timed launches, {rec.launches[n]} counted")
+        per_path = {}
+        for k, times in sorted(ev.items()):
+            bl, plain = rec.bounds[n].get(k), rec.plain_ms[n].get(k)
+            if not bl or not plain:
+                fail(f"{n}: no bound or plain time for {k}")
             vals = [bound_ms(b) for b in bl]
-            b_ms[tag] = mean([v for v, _ in vals])
-            b_by[tag] = max(vals)[1]
-        by = b_by["2d"] if "2d" in b_by else b_by["1d"]
-        plain = {t: mean(rec[n]["plain_ms"][t]) for t in ("1d", "2d")}
-        lib = {t: mean(rec[n]["library_ms"][t]) for t in ("1d", "2d")}
+            per_path[k] = dict(launches=len(times), ms=mean(times),
+                               bound_ms=mean([v for v, _ in vals]), bound_by=max(vals)[1],
+                               plain_ms=mean(plain),
+                               library_ms=mean(rec.library_ms[n].get(k, [])))
+        wsum = lambda f: sum(v["launches"] * v[f] for v in per_path.values()) / launches
+        heaviest = max(per_path.values(), key=lambda v: v["launches"] * v["bound_ms"])
         out.append(dict(
-            name=n, route="cuda", source=SOURCE, replaces=REPLACES[n],
-            launches=launches, max_abs_err=max(rec[n]["err"]), ms=ms,
-            plain_ms=w(plain),
-            bound_ms=w({t: b_ms.get(t, 0.0) for t in counts}), bound_by=by,
-            library_ms=w(lib) if n == "strata_merge_sum" else None,
-            per_shape={t: dict(launches=counts[t], ms=mean(ev[t]), plain_ms=plain[t],
-                               bound_ms=b_ms.get(t)) for t in counts if counts[t]},
+            name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],
+            also_replaces=ALSO_REPLACES.get(n), launches=launches,
+            max_abs_err=max(x for v in rec.err[n].values() for x in v),
+            ms=sum(sum(v) for v in ev.values()) / launches,
+            plain_ms=wsum("plain_ms"), bound_ms=wsum("bound_ms"),
+            bound_by=heaviest["bound_by"],
+            library_ms=wsum("library_ms") if n in LIBRARY else None,
+            per_path=per_path,
         ))
     return {"kernels": out}
 
@@ -519,17 +928,30 @@ def main() -> int:
               if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
     say("build", seconds=build_s, ptxas=report)
 
+    rec = Record()
     with tempfile.TemporaryDirectory() as tmp:
         gfa = os.path.join(tmp, "smoke.gfa")
         t0 = time.perf_counter()
         write_smoke_gfa(gfa, SMOKE_STEPS, SMOKE_NODES, SMOKE_PATH_STEPS)
         say("gfa", seconds=time.perf_counter() - t0, bytes=os.path.getsize(gfa))
+        phase_kernels(ot.parse_gfa(gfa, device=dev), dev, rec)
+        phase_smoke(gfa, tmp, dev, rec)
 
-        g = ot.parse_gfa(gfa, device=dev)
-        rec = phase_kernels(g, dev)
-        main_out = phase_main(gfa, tmp, dev)
+        t0 = time.perf_counter()
+        g_xl = shuffled_graph(XL_STEPS, XL_NODES, XL_PATH_STEPS)
+        g_big = shuffled_graph(BIG_STEPS, BIG_NODES, BIG_PATH_STEPS)
+        say("graphs", seconds=time.perf_counter() - t0,
+            xl=dict(steps=g_xl.num_steps, nodes=g_xl.num_nodes, paths=g_xl.num_paths),
+            big=dict(steps=g_big.num_steps, nodes=g_big.num_nodes, paths=g_big.num_paths))
+        for label, g in (("xl", g_xl), ("big", g_big)):
+            say("schedule", graph=label, **{tag: schedule_stats(g, one_d)
+                                            for tag, one_d in (("1d", True), ("2d", False))})
+        phase_stream_kernels(g_xl, "xl", "xl", dev, rec)
+        phase_stream_kernels(g_big, "big", "xxl", dev, rec)
+        phase_xl(g_xl, tmp, dev, rec)
+        phase_big(g_big, tmp, dev, rec)
 
-    print(json.dumps(kernel_line(rec, main_out)), flush=True)
+    print(json.dumps(kernel_line(rec)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

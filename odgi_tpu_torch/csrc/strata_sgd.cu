@@ -21,23 +21,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "strata_common.cuh"
+
 namespace {
 
-constexpr int LANE = 128;
-constexpr int CHUNK = 4096;          // pairs per chunk
+using strata::CHUNK;
+using strata::LANE;
+using strata::coin_hash;
+
 constexpr int CHUNK_THREADS = 1024;  // one block walks a merge group
 constexpr int PAIRS_PER_THREAD = CHUNK / CHUNK_THREADS;
 constexpr int MERGE_THREADS = 256;
-
-// The reference's per-pair coin hash (pallas_sgd.py _pair_coins) in uint32
-// arithmetic: i = pair index, sel = 0 for side a, 1 for side b, gch = the
-// chunk key gl * 1000003 (wrapped).  Only bit 0 is used.
-__device__ __forceinline__ uint32_t coin_hash(uint32_t i, uint32_t sel, uint32_t gch) {
-  uint32_t h = i * 0x9E3779B9u + sel * 0x6A09E667u + gch * 0xBB67AE85u;
-  h = (h ^ (h >> 16)) * 0x85EBCA6Bu;
-  h = (h ^ (h >> 13)) * 0xC2B2AE35u;
-  return h ^ (h >> 16);
-}
 
 // ---------------------------------------------------------------------------
 // strata_chunks_2d: the chunk phase of _make_kernel_2d for one merge group.

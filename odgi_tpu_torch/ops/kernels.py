@@ -1,18 +1,26 @@
 """The strata PG-SGD CUDA kernels: build, ctypes binding and wrappers.
 
-``csrc/strata_sgd.cu`` is compiled with nvcc at first use into
-``odgi_tpu_torch/_build/`` (keyed by a hash of the source and the flags)
-and loaded with ``ctypes``.  Each wrapper takes its kernel's plain PyTorch
-version from ``ops/strata_sgd.py`` when the tensors lie on the CPU; for
-CUDA tensors it launches the kernel on the current stream or raises.  A
-wrapper adds one to ``LAUNCHES[name]`` for every kernel launch, and only
-there.
+Every ``csrc/*.cu`` is compiled with nvcc at first use into
+``odgi_tpu_torch/_build/`` (one shared library a source, all built at once,
+keyed by a hash of every source, header and flag) and loaded with
+``ctypes``.  Each wrapper takes its kernel's plain PyTorch version from
+``ops/strata_sgd.py`` when the tensors lie on the CPU; for CUDA tensors it
+launches the kernel on the current stream or raises.  A wrapper adds one to
+``LAUNCHES[name]`` for every kernel launch, and only there.
 
-Kernel                TPU kernel it replaces (odgi_tpu/ops/pallas_sgd.py)
-strata_chunks_2d      _make_kernel_2d, chunk phase (_chunk_2d)
-strata_chunks_1d      _make_kernel_1d, chunk phase (_chunk_1d)
-strata_merge_sum      _merge_tiles_2d / _merge_tiles_1d, the sums
-strata_merge_bcast    _merge_tiles_2d / _merge_tiles_1d, the broadcast
+Kernel (source)                     TPU kernel it replaces (odgi_tpu/ops/)
+strata_chunks_2d (strata_sgd.cu)    pallas_sgd.py _make_kernel_2d, chunk phase
+strata_chunks_1d                    pallas_sgd.py _make_kernel_1d, chunk phase
+strata_merge_sum                    pallas_sgd.py _merge_tiles_2d/_1d, sums
+strata_merge_bcast                  pallas_sgd.py _merge_tiles_2d/_1d, broadcast
+strata_chunks_2d_stream             pallas_sgd_xl.py _run_chunks_2d (XL, XXL 2D)
+  (strata_stream.cu)
+strata_chunks_1d_stream             pallas_sgd_xl.py _run_chunks_1d (XL, XXL 1D)
+strata_merge_sum_blocked            pallas_sgd_xxl.py scatter pass
+  (strata_blocked.cu)
+strata_merge_bcast_blocked          pallas_sgd_xxl.py broadcast + zeroing passes
+The XL route's merge is strata_merge_sum / strata_merge_bcast, which have
+no node-width cap (the counterpart of XL's streamed full-width merge).
 """
 
 from __future__ import annotations
@@ -29,18 +37,34 @@ import torch
 from . import strata_sgd
 
 PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = PKG_DIR / "csrc" / "strata_sgd.cu"
+CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
-NAMES = ("strata_chunks_2d", "strata_chunks_1d", "strata_merge_sum",
-         "strata_merge_bcast")
+
+P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_CHUNK_ARGS = [P, P, P, LL, P, P, I, I, I, P]
+_STREAM_ARGS = [P, P, P, LL, P, P, P, I, I, I, P]
+# name -> ctypes argument types of its C entry (all return int)
+SIGNATURES = {
+    "strata_chunks_2d": _CHUNK_ARGS,
+    "strata_chunks_1d": _CHUNK_ARGS,
+    "strata_merge_sum": [P, LL, P, P, P, P, P, I, I, I, P],
+    "strata_merge_bcast": [P, P, LL, P, P, I, I, P],
+    "strata_chunks_2d_stream": _STREAM_ARGS,
+    "strata_chunks_1d_stream": _STREAM_ARGS,
+    "strata_merge_sum_blocked": [P, LL, P, P, P, P, P, I, I, I, P, P, I, I, P],
+    "strata_merge_bcast_blocked": [P, P, LL, P, P, I, I, I, P, P, I, I, LL, P],
+}
+NAMES = tuple(SIGNATURES)
+# Shared memory a thread block may use on sm_90 (the blocked sum checks it).
+MAX_SMEM_BYTES = 232_448
 
 LAUNCHES = {name: 0 for name in NAMES}
 
-_lib = None
+_fns: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -59,50 +83,67 @@ def _nvcc() -> str:
                        "cannot be built")
 
 
-def library_path() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"strata_sgd_{key.hexdigest()[:16]}.so"
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
 
 
-def build() -> Path:
-    """Compile the kernels unless a build of this source exists; returns
-    the shared library.  nvcc's -Xptxas -v report is kept beside it."""
-    so = library_path()
-    if so.exists():
-        return so
+def library_paths() -> list:
+    """The shared library of every source, keyed by all sources, headers
+    and flags."""
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        key.update(f.name.encode() + f.read_bytes())
+    tag = key.hexdigest()[:16]
+    return [BUILD_DIR / f"{src.stem}_{tag}.so" for src in sources()]
+
+
+def build() -> list:
+    """Compile every source that has no build of this key yet, one nvcc
+    each, all started at once; returns the shared libraries.  nvcc's
+    -Xptxas -v report is kept beside each."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"odgi_tpu_torch: nvcc failed ({res.returncode}):\n{res.stderr}"
-        )
-    so.with_suffix(".ptxas.txt").write_text(res.stdout + res.stderr)
-    os.replace(tmp, so)
-    return so
+    jobs = []
+    for src, so in zip(sources(), library_paths()):
+        if so.exists():
+            continue
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((src, so, tmp, proc))
+    failed = []
+    for src, so, tmp, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+            continue
+        so.with_suffix(".ptxas.txt").write_text(out + err)
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("odgi_tpu_torch: nvcc failed: " + "\n".join(failed))
+    return library_paths()
 
 
 def ptxas_report() -> str:
-    """nvcc -Xptxas -v output of the current build."""
-    return library_path().with_suffix(".ptxas.txt").read_text()
+    """nvcc -Xptxas -v output of the current build, every source."""
+    return "\n".join(so.with_suffix(".ptxas.txt").read_text() for so in library_paths())
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for name in ("strata_chunks_2d", "strata_chunks_1d"):
-            fn = getattr(lib, name)
-            fn.argtypes = [P, P, P, LL, P, P, I, I, I, P]
-            fn.restype = I
-        lib.strata_merge_sum.argtypes = [P, LL, P, P, P, P, P, I, I, I, P]
-        lib.strata_merge_sum.restype = I
-        lib.strata_merge_bcast.argtypes = [P, P, LL, P, P, I, I, P]
-        lib.strata_merge_bcast.restype = I
-        _lib = lib
-    return _lib
+def _fn(name: str):
+    """The C entry `name`, from whichever library defines it."""
+    if not _fns:
+        for so in build():
+            lib = ctypes.CDLL(str(so))
+            for n, argtypes in SIGNATURES.items():
+                if hasattr(lib, n):
+                    fn = getattr(lib, n)
+                    fn.argtypes = argtypes
+                    fn.restype = I
+                    _fns[n] = fn
+            if hasattr(lib, "strata_merge_sum_blocked_smem"):
+                lib.strata_merge_sum_blocked_smem.argtypes = [I, I]
+                lib.strata_merge_sum_blocked_smem.restype = LL
+                _fns["strata_merge_sum_blocked_smem"] = lib.strata_merge_sum_blocked_smem
+    return _fns[name]
 
 
 def _require(cond: bool, what: str) -> None:
@@ -116,6 +157,8 @@ def _check(tensors: dict, device) -> None:
         "od": torch.int32, "eta": torch.float32, "ep": torch.int32,
         "csr_off": torch.int32, "csr_slot": torch.int32,
         "recip": torch.float64, "coords": torch.float64, "upd": torch.float64,
+        "sync": torch.int32, "tile": torch.int32, "block": torch.int32,
+        "blk_off": torch.int32,
     }
     for name, t in tensors.items():
         _require(t.device == device, f"{name} is on {t.device}, not {device}")
@@ -137,8 +180,12 @@ def _launched(name: str, err: int) -> None:
         raise RuntimeError(f"odgi_tpu_torch: {name} launch failed: CUDA error {err}")
 
 
-def _chunks(name: str, nplanes: int, drift, base, planes, od, eta, cpi, g0, cgs):
-    _check(dict(drift=drift, base=base, planes=planes, od=od, eta=eta), drift.device)
+def _chunks(name: str, nplanes: int, drift, base, planes, od, eta, cpi, g0, cgs,
+            sync=None):
+    tensors = dict(drift=drift, base=base, planes=planes, od=od, eta=eta)
+    if sync is not None:
+        tensors["sync"] = sync
+    _check(tensors, drift.device)
     L = drift.shape[1]
     _require(drift.shape == base.shape and drift.shape[0] == (4 if nplanes == 4 else 1),
              "drift/base shape")
@@ -147,9 +194,13 @@ def _chunks(name: str, nplanes: int, drift, base, planes, od, eta, cpi, g0, cgs)
              "od covers the group")
     _require(cgs > 0 and cpi > 0 and (g0 + cgs - 1) // cpi < eta.shape[0],
              "eta covers the group")
-    fn = getattr(_load(), name)
-    err = fn(_ptr(drift), _ptr(base), _ptr(planes), L, _ptr(od), _ptr(eta),
-             int(cpi), int(g0), int(cgs), _stream(drift.device))
+    if sync is None:
+        err = _fn(name)(_ptr(drift), _ptr(base), _ptr(planes), L, _ptr(od), _ptr(eta),
+                        int(cpi), int(g0), int(cgs), _stream(drift.device))
+    else:
+        _require(sync.shape == (od.shape[0],), "sync has one flag a chunk")
+        err = _fn(name)(_ptr(drift), _ptr(base), _ptr(planes), L, _ptr(od), _ptr(sync),
+                        _ptr(eta), int(cpi), int(g0), int(cgs), _stream(drift.device))
     _launched(name, err)
 
 
@@ -178,7 +229,7 @@ def strata_merge_sum(drift, mi, coords, upd):
     _require(drift.shape[0] == (4 if nc == 2 else 1), "drift planes")
     _require(upd.shape == (nc, mi.ecap) and mi.csr_off.shape == (E + 1,)
              and mi.recip.shape == (E,), "merge index shapes")
-    err = _load().strata_merge_sum(
+    err = _fn("strata_merge_sum")(
         _ptr(drift), L, _ptr(mi.csr_off), _ptr(mi.csr_slot), _ptr(mi.recip),
         _ptr(coords), _ptr(upd), int(E), int(mi.ecap), int(nc),
         _stream(drift.device))
@@ -194,7 +245,76 @@ def strata_merge_bcast(drift, base, mi, upd):
     L = drift.shape[1]
     _require(base.shape == drift.shape and mi.ep.shape == (L,)
              and upd.shape == (nc, mi.ecap), "broadcast shapes")
-    err = _load().strata_merge_bcast(
+    err = _fn("strata_merge_bcast")(
         _ptr(drift), _ptr(base), L, _ptr(mi.ep), _ptr(upd), int(mi.ecap),
         int(nc), _stream(drift.device))
     _launched("strata_merge_bcast", err)
+
+
+def strata_chunks_2d_stream(drift, base, planes, od, sync, eta, cpi: int, g0: int, cgs: int):
+    """Chunk phase of one 2D merge group on the XL / XXL routes, in place on
+    `drift`; `sync` (chunks,) i32 gates the next chunk's drift prefetch.
+    Same result as `strata_chunks_2d`."""
+    if drift.device.type == "cpu":
+        return strata_sgd.chunks_2d_plain(drift, base, planes, od, eta, cpi, g0, cgs)
+    _chunks("strata_chunks_2d_stream", 4, drift, base, planes, od, eta, cpi, g0, cgs, sync)
+
+
+def strata_chunks_1d_stream(drift, base, planes, od, sync, eta, cpi: int, g0: int, cgs: int):
+    """Chunk phase of one 1D merge group on the XL / XXL routes."""
+    if drift.device.type == "cpu":
+        return strata_sgd.chunks_1d_plain(drift, base, planes, od, eta, cpi, g0, cgs)
+    _chunks("strata_chunks_1d_stream", 3, drift, base, planes, od, eta, cpi, g0, cgs, sync)
+
+
+def _check_schedule(drift, mi, bsch, nc: int, E: int) -> None:
+    _check(dict(tile=bsch.tile, block=bsch.block, blk_off=bsch.blk_off), drift.device)
+    K = bsch.num_entries
+    _require(K > 0 and bsch.block.shape == (K,), "schedule entries")
+    _require(bsch.bs > 0 and bsch.bs % 2 == 0, "block size is even")
+    _require(bsch.num_blocks * bsch.bs >= E, "the blocks cover every endpoint")
+    _require(0 < bsch.num_steps <= drift.shape[1] and mi.ep.shape == (drift.shape[1],),
+             "step count within the planes")
+    _require(drift.shape[1] % strata_sgd.TILE == 0, "planes are whole tiles")
+
+
+def strata_merge_sum_blocked(drift, mi, bsch, coords, upd):
+    """Consensus sums of the XXL route: the result of `strata_merge_sum`,
+    one thread block per node block of the schedule `bsch`."""
+    if drift.device.type == "cpu":
+        return strata_sgd.merge_sum_blocked_plain(drift, mi, bsch, coords, upd)
+    _check(dict(drift=drift, csr_off=mi.csr_off, csr_slot=mi.csr_slot,
+                recip=mi.recip, coords=coords, upd=upd), drift.device)
+    nc, E = coords.shape
+    L = drift.shape[1]
+    _require(drift.shape[0] == (4 if nc == 2 else 1), "drift planes")
+    _require(upd.shape == (nc, mi.ecap) and mi.csr_off.shape == (E + 1,)
+             and mi.recip.shape == (E,), "merge index shapes")
+    _check_schedule(drift, mi, bsch, nc, E)
+    _require(_fn("strata_merge_sum_blocked_smem")(nc, bsch.bs) <= MAX_SMEM_BYTES,
+             f"block size {bsch.bs} needs more shared memory than a block has")
+    err = _fn("strata_merge_sum_blocked")(
+        _ptr(drift), L, _ptr(mi.csr_off), _ptr(mi.csr_slot), _ptr(mi.recip),
+        _ptr(coords), _ptr(upd), int(E), int(mi.ecap), int(nc), _ptr(bsch.tile),
+        _ptr(bsch.blk_off), int(bsch.num_blocks), int(bsch.bs), _stream(drift.device))
+    _launched("strata_merge_sum_blocked", err)
+
+
+def strata_merge_bcast_blocked(drift, base, mi, bsch, upd):
+    """Broadcast of the XXL route: the result of `strata_merge_bcast`, one
+    thread block per schedule entry."""
+    if drift.device.type == "cpu":
+        return strata_sgd.merge_bcast_blocked_plain(drift, base, mi, bsch, upd)
+    _check(dict(drift=drift, base=base, ep=mi.ep, upd=upd), drift.device)
+    nc = upd.shape[0]
+    E = mi.recip.shape[0]
+    L = drift.shape[1]
+    _require(base.shape == drift.shape and drift.shape[0] == (4 if nc == 2 else 1)
+             and upd.shape == (nc, mi.ecap), "broadcast shapes")
+    _check_schedule(drift, mi, bsch, nc, E)
+    _require(nc * bsch.bs * 4 <= MAX_SMEM_BYTES, "block update fits shared memory")
+    err = _fn("strata_merge_bcast_blocked")(
+        _ptr(drift), _ptr(base), L, _ptr(mi.ep), _ptr(upd), int(E), int(mi.ecap),
+        int(nc), _ptr(bsch.tile), _ptr(bsch.block), int(bsch.num_entries),
+        int(bsch.bs), int(bsch.num_steps), _stream(drift.device))
+    _launched("strata_merge_bcast_blocked", err)

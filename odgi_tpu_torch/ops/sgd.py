@@ -4,8 +4,9 @@ The counterpart of ``odgi_tpu/ops/sgd.py`` for the strata path.  The
 learning-rate schedule and the derived configs are exact copies, so a
 config built here equals the JAX package's field for field (less the
 fields that only steer the TPU's batched path).  ``path_sgd_1d`` and
-``path_sgd_2d`` run the strata scheme of ``ops/strata_sgd.py``; the parts
-of the reference that take another path raise ``NotImplementedError`` and
+``path_sgd_2d`` run the strata scheme of ``ops/strata_sgd.py`` on the route
+``ops/strata_route.py`` picks (resident, XL or XXL kernels); the parts of
+the reference that take another path raise ``NotImplementedError`` and
 name the ROADMAP item that will port them.
 """
 
@@ -20,12 +21,6 @@ import torch
 
 from ..core.graph import GraphTensors
 from ..device import resolve_device
-
-# Smallest step count the strata path takes; below it the reference runs
-# its batched path (odgi_tpu/ops/pallas_sgd.py `_supported`).
-MIN_STRATA_STEPS = 1024
-# Positions at or past this take the batched path in the reference too.
-MAX_STRATA_POS = 2**30
 
 
 def not_ported(what: str, item: int) -> NotImplementedError:
@@ -119,9 +114,12 @@ def derive_config_2d(g: GraphTensors, **overrides) -> SgdConfig:
     return SgdConfig(**cfg)
 
 
-def _check_strata_domain(g: GraphTensors, cfg: SgdConfig, use_paths, pin_nodes,
-                         snapshot_cb) -> None:
-    """Raise for every case the reference sends down another path."""
+def _strata_route(g: GraphTensors, cfg: SgdConfig, one_d: bool, use_paths,
+                  pin_nodes, snapshot_cb) -> str:
+    """The strata route of this run; raise for every case the reference
+    sends down another path."""
+    from .strata_route import MIN_STRATA_STEPS, graph_route
+
     if use_paths is not None and sorted(use_paths) != list(range(g.num_paths)):
         raise not_ported("use_paths (PG-SGD on a subset of the paths)", 14)
     if pin_nodes is not None:
@@ -130,13 +128,13 @@ def _check_strata_domain(g: GraphTensors, cfg: SgdConfig, use_paths, pin_nodes,
         raise not_ported("per-iteration snapshots (-u, the batched SGD path)", 9)
     if cfg.delta > 0:
         raise not_ported("delta early stop (-j)", 8)
-    if g.num_steps < MIN_STRATA_STEPS:
+    route = graph_route(g, cfg, one_d)
+    if route == "batched":
         raise not_ported(
-            f"graphs under {MIN_STRATA_STEPS} steps (the batched SGD path)", 9
+            f"graphs under {MIN_STRATA_STEPS} steps or with path positions of "
+            "2^30 and more (the batched SGD path)", 9
         )
-    max_pos = int(g.step_pos.max(initial=0)) + int(g.node_len.max(initial=0))
-    if max_pos >= MAX_STRATA_POS:
-        raise not_ported("path positions of 2^30 and more (the batched SGD path)", 9)
+    return route
 
 
 def path_sgd_1d(
@@ -157,10 +155,10 @@ def path_sgd_1d(
         cfg = derive_config_1d(g)
     if not (g.path_step_count > 1).any():
         return torch.as_tensor(g.node_offset.astype(np.float64), device=dev)
-    _check_strata_domain(g, cfg, use_paths, pin_nodes, snapshot_cb)
+    route = _strata_route(g, cfg, True, use_paths, pin_nodes, snapshot_cb)
     from .strata_sgd import path_sgd_1d_strata
 
-    return path_sgd_1d_strata(g, cfg, x0, dev)
+    return path_sgd_1d_strata(g, cfg, x0, dev, route=route)
 
 
 def path_sgd_2d(
@@ -179,7 +177,7 @@ def path_sgd_2d(
         cfg = derive_config_2d(g)
     if not (g.path_step_count > 1).any():
         return torch.as_tensor(np.asarray(coords0, np.float64), device=dev)
-    _check_strata_domain(g, cfg, use_paths, pin_nodes, snapshot_cb)
+    route = _strata_route(g, cfg, False, use_paths, pin_nodes, snapshot_cb)
     from .strata_sgd import path_sgd_2d_strata
 
-    return path_sgd_2d_strata(g, coords0, cfg, dev)
+    return path_sgd_2d_strata(g, coords0, cfg, dev, route=route)

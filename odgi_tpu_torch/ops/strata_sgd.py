@@ -11,6 +11,19 @@ of its slots in f64 (ascending slot order), scale by 1/R (R = the node's
 step count), add into the f64 node coordinates, broadcast the update into
 ``base`` and reset ``drift``.
 
+A run takes one of three routes (``ops/strata_route.py``), the
+counterparts of the JAX package's three kernel families.  All three compute
+the same function, bit for bit:
+- ``"resident"`` (``_make_kernel_1d/2d``): the chunk kernels and the CSR
+  merge;
+- ``"xl"`` (``_make_kernel_xl/_xl_1d``): the stream chunk kernels, which
+  prefetch the next chunk while one runs (gated by the sync flags of
+  ``ops/strata_xl.py``), and the CSR merge;
+- ``"xxl"`` (``_make_kernel_xxl/_xxl_1d``): nodes relabeled by first visit
+  (``ops/strata_xxl.py``), the stream chunk kernels, and the blocked merges
+  that walk the (block, tile) schedule; coordinates are relabeled back at
+  the end.
+
 Each phase has a plain PyTorch version here and a CUDA kernel behind the
 wrappers of ``ops/kernels.py``; the runs call the wrappers, which take
 the plain version for CPU tensors and launch the kernel for CUDA tensors.
@@ -19,12 +32,16 @@ the plain version for CPU tensors and launch the kernel for CUDA tensors.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
 from . import kernels
 from .strata_plan import CHUNK, LANE, P1_PATH, P1_POS, PATH, POS, POSEND, plan_run
+from .strata_route import ROUTES, graph_route
+from .strata_xl import sync_flags
+from .strata_xxl import TILE, BlockSchedule, relabel, relabel_coords, unrelabel
 
 _M32 = 0xFFFFFFFF
 
@@ -184,6 +201,58 @@ def merge_bcast_plain(drift, base, mi: "MergeIndex", upd):
     drift.zero_()
 
 
+def _block_entries(mi: "MergeIndex", bsch: BlockSchedule):
+    """The schedule's entries in order: per entry, the tile's slice of real
+    slots and the mask of those whose (forward) endpoint lies in the
+    entry's block."""
+    for t, b in zip(bsch.tile.tolist(), bsch.block.tolist()):
+        sl = slice(t * TILE, min((t + 1) * TILE, bsch.num_steps))
+        yield sl, torch.div(mi.ep[sl], bsch.bs, rounding_mode="floor") == b
+
+
+def merge_sum_blocked_plain(drift, mi: "MergeIndex", bsch: BlockSchedule, coords, upd):
+    """`merge_sum_plain`, walking the (block, tile) schedule entry by entry.
+
+    Each endpoint's slots arrive in ascending order (a block's entries are
+    in ascending tile order), so the f64 sums equal `merge_sum_plain`'s
+    exactly; a slot the schedule misses drops out of its sum."""
+    nc, E = coords.shape
+    dv = drift.to(torch.float64)
+    acc_f = torch.zeros((nc, mi.ecap), dtype=torch.float64, device=drift.device)
+    acc_r = torch.zeros_like(acc_f)
+    for sl, m in _block_entries(mi, bsch):
+        idx = mi.ep[sl][m]
+        if nc == 1:
+            acc_f[0].index_add_(0, idx, dv[0, sl][m])
+            continue
+        for ch in range(nc):
+            acc_f[ch].index_add_(0, idx, dv[2 * ch, sl][m])
+            acc_r[ch].index_add_(0, idx ^ 1, dv[2 * ch + 1, sl][m])
+    for ch in range(nc):
+        acc = acc_f[ch] if nc == 1 else acc_f[ch] + acc_r[ch]
+        u = acc[:E] * mi.recip
+        upd[ch, :E] = u
+        coords[ch] += u
+
+
+def merge_bcast_blocked_plain(drift, base, mi: "MergeIndex", bsch: BlockSchedule, upd):
+    """`merge_bcast_plain`, walking the schedule entry by entry: each real
+    slot takes its update in the entry of its endpoint's block; the pad
+    slots' drift is zeroed after."""
+    nc = upd.shape[0]
+    for sl, m in _block_entries(mi, bsch):
+        idx = mi.ep[sl][m]
+        if nc == 1:
+            base[0, sl][m] += upd[0][idx].to(torch.float32)
+        else:
+            base[0, sl][m] += upd[0][idx].to(torch.float32)
+            base[1, sl][m] += upd[0][idx ^ 1].to(torch.float32)
+            base[2, sl][m] += upd[1][idx].to(torch.float32)
+            base[3, sl][m] += upd[1][idx ^ 1].to(torch.float32)
+        drift[:, sl][:, m] = 0.0
+    drift[:, bsch.num_steps:] = 0.0
+
+
 # ---------------------------------------------------------------------------
 # Run state and the 1D/2D runs
 # ---------------------------------------------------------------------------
@@ -236,7 +305,10 @@ class MergeIndex:
 
 @dataclass
 class StrataState:
-    """Device tensors of one strata run (see the module docstring)."""
+    """Device tensors of one strata run (see the module docstring).
+
+    On the "xxl" route every graph array (and `coords`) is in the
+    relabeled numbering; `order` maps it back."""
 
     plan: dict
     one_d: bool
@@ -248,10 +320,22 @@ class StrataState:
     mi: MergeIndex
     coords: torch.Tensor   # f64 (2 or 1, E) node coordinates
     upd: torch.Tensor      # f64 (2 or 1, E_cap) last merge's update
+    route: str = "resident"
+    sync: Optional[torch.Tensor] = None   # i32 (chunks,) "xl", "xxl"
+    bsch: Optional[BlockSchedule] = None  # "xxl"
+    order: Optional[np.ndarray] = None    # "xxl": relabel order
 
     @staticmethod
-    def build(g, cfg, init: np.ndarray, one_d: bool, device) -> "StrataState":
-        """`init`: (2N, 2) coordinates for 2D, (N,) positions for 1D."""
+    def build(g, cfg, init: np.ndarray, one_d: bool, device,
+              route: str = "resident") -> "StrataState":
+        """`init`: (2N, 2) coordinates for 2D, (N,) positions for 1D, in
+        `g`'s numbering."""
+        if route not in ROUTES:
+            raise ValueError(f"strata route {route!r} is not one of {ROUTES}")
+        order = None
+        if route == "xxl":
+            g, order = relabel(g)
+            init = relabel_coords(np.asarray(init), order)
         p = plan_run(g, cfg, one_d=one_d)
         data = p["data"]
         L = data.num_slots
@@ -289,34 +373,53 @@ class StrataState:
             mi=mi,
             coords=t(coords, torch.float64),
             upd=torch.zeros((coords.shape[0], mi.ecap), dtype=torch.float64, device=device),
+            route=route,
+            sync=None if route == "resident" else t(sync_flags(p), torch.int32),
+            bsch=BlockSchedule.build(g, one_d, device) if route == "xxl" else None,
+            order=order,
         )
 
     def run_group(self, gid: int) -> None:
         """One merge group: the chunk phase, then the consensus merge."""
         p = self.plan
-        chunks = kernels.strata_chunks_1d if self.one_d else kernels.strata_chunks_2d
-        chunks(self.drift, self.base, self.planes, self.od, self.eta,
-               p["cpi"], gid * p["cgs"], p["cgs"])
-        kernels.strata_merge_sum(self.drift, self.mi, self.coords, self.upd)
-        kernels.strata_merge_bcast(self.drift, self.base, self.mi, self.upd)
+        args = (self.drift, self.base, self.planes, self.od)
+        tail = (self.eta, p["cpi"], gid * p["cgs"], p["cgs"])
+        if self.route == "resident":
+            chunks = kernels.strata_chunks_1d if self.one_d else kernels.strata_chunks_2d
+            chunks(*args, *tail)
+        else:
+            chunks = (kernels.strata_chunks_1d_stream if self.one_d
+                      else kernels.strata_chunks_2d_stream)
+            chunks(*args, self.sync, *tail)
+        if self.route == "xxl":
+            kernels.strata_merge_sum_blocked(self.drift, self.mi, self.bsch,
+                                             self.coords, self.upd)
+            kernels.strata_merge_bcast_blocked(self.drift, self.base, self.mi,
+                                               self.bsch, self.upd)
+        else:
+            kernels.strata_merge_sum(self.drift, self.mi, self.coords, self.upd)
+            kernels.strata_merge_bcast(self.drift, self.base, self.mi, self.upd)
 
     def run(self) -> None:
         for gid in range(self.plan["groups"]):
             self.run_group(gid)
 
 
-def path_sgd_2d_strata(g, coords0, cfg, device) -> torch.Tensor:
-    """2D strata run from (2N, 2) `coords0`; f64 (2N, 2) on `device`."""
+def path_sgd_2d_strata(g, coords0, cfg, device, route: Optional[str] = None) -> torch.Tensor:
+    """2D strata run from (2N, 2) `coords0`; f64 (2N, 2) on `device`.
+    `route` forces a route (default: `graph_route`)."""
+    route = graph_route(g, cfg, one_d=False) if route is None else route
     st = StrataState.build(g, cfg, np.asarray(coords0, np.float64), False,
-                           torch.device(device))
+                           torch.device(device), route)
     st.run()
-    return st.coords.T.contiguous()
+    return unrelabel(st.coords.T.contiguous(), st.order)
 
 
-def path_sgd_1d_strata(g, cfg, x0, device) -> torch.Tensor:
+def path_sgd_1d_strata(g, cfg, x0, device, route: Optional[str] = None) -> torch.Tensor:
     """1D strata run from `x0` (default: node offsets); f64 (N,) on
-    `device`."""
+    `device`.  `route` forces a route (default: `graph_route`)."""
+    route = graph_route(g, cfg, one_d=True) if route is None else route
     x0v = g.node_offset.astype(np.float32) if x0 is None else np.asarray(x0, np.float32)
-    st = StrataState.build(g, cfg, x0v, True, torch.device(device))
+    st = StrataState.build(g, cfg, x0v, True, torch.device(device), route)
     st.run()
-    return st.coords[0].clone()
+    return unrelabel(st.coords[0].clone(), st.order)

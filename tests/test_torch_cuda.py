@@ -7,8 +7,11 @@ Tolerances: the chunk kernels are compiled with -fmad=false and IEEE sqrt
 and division, so they round as the plain versions do; max |drift delta|
 over the scale <= 1e-6 (bit-equality expected).  The merge sums are f64 in
 ascending slot order, while the plain version's CUDA index_add_ adds in no
-fixed order: <= 1e-12 of the scale.
+fixed order: <= 1e-12 of the scale.  The stream and blocked kernels of the
+XL and XXL routes equal the resident kernels exactly.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -16,7 +19,7 @@ import torch
 
 from odgi_tpu_torch.algorithms.layout import init_layout
 from odgi_tpu_torch.core.graph import GraphBuilder
-from odgi_tpu_torch.ops import kernels, sgd, strata_sgd
+from odgi_tpu_torch.ops import kernels, sgd, strata_sgd, strata_xl, strata_xxl
 
 pytestmark = pytest.mark.cuda
 
@@ -50,14 +53,51 @@ def graph():
     return b.build()
 
 
-def _state(graph, one_d, device):
+def _walk_graph(nodes, paths, steps, jump, seed, shuffle=False):
+    rng = np.random.default_rng(seed)
+    b = GraphBuilder()
+    for i in range(1, nodes + 1):
+        b.add_node(i, b"ACGT" * int(rng.integers(1, 5)))
+    for i in range(1, nodes):
+        b.add_edge(i, False, i + 1, False)
+    for pi in range(paths):
+        p = b.add_path(f"p{pi}")
+        n = 1
+        for _ in range(steps):
+            b.append_step(p, n, bool(rng.integers(0, 2)))
+            n = int(np.clip(n + rng.integers(-jump, jump + 1), 1, nodes))
+    g = b.build()
+    return g.apply_ordering(np.random.default_rng(5).permutation(nodes)) if shuffle else g
+
+
+@pytest.fixture(scope="module")
+def long_graph():
+    """3 paths x 12,000 steps over 120 nodes: room for chunks whose windows
+    lie far apart."""
+    return _walk_graph(120, 3, 12_000, 2, 7)
+
+
+@pytest.fixture(scope="module")
+def wide_graph():
+    """2000 nodes, 3 paths x 1800 steps (tests/test_pallas_sgd_xxl.py), ids
+    shuffled: multi-block XXL merges at small block sizes."""
+    return _walk_graph(2000, 3, 1800, 40, 23, shuffle=True)
+
+
+def _state(graph, one_d, device, route="resident"):
     kw = dict(iter_max=2, min_term_updates=3 * 1024)
     if one_d:
         return strata_sgd.StrataState.build(
             graph, sgd.derive_config_1d(graph, **kw),
-            graph.node_offset.astype(np.float32), True, device)
+            graph.node_offset.astype(np.float32), True, device, route)
     return strata_sgd.StrataState.build(
-        graph, sgd.derive_config_2d(graph, **kw), init_layout(graph), False, device)
+        graph, sgd.derive_config_2d(graph, **kw), init_layout(graph), False, device, route)
+
+
+def _chunk_kernels(one_d):
+    if one_d:
+        return kernels.strata_chunks_1d_stream, kernels.strata_chunks_1d, strata_sgd.chunks_1d_plain
+    return kernels.strata_chunks_2d_stream, kernels.strata_chunks_2d, strata_sgd.chunks_2d_plain
 
 
 @pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
@@ -119,3 +159,130 @@ def test_wrapper_rejects_bad_arguments(cuda, graph):
     with pytest.raises(ValueError):
         kernels.strata_chunks_2d(st.drift.double(), st.base, st.planes, st.od, st.eta,
                                  p["cpi"], 0, p["cgs"])
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+def test_stream_kernels_equal_resident_all_synced(cuda, graph, one_d):
+    """Every chunk's drift read after the previous chunk's adds."""
+    st = _state(graph, one_d, cuda, "xl")
+    p = st.plan
+    stream, resident, _ = _chunk_kernels(one_d)
+    ones = torch.ones_like(st.sync)
+    for gid in range(p["groups"]):
+        tail = (st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
+        d_s, d_r, d_f = st.drift.clone(), st.drift.clone(), st.drift.clone()
+        stream(d_s, st.base, st.planes, st.od, ones, *tail)
+        stream(d_f, st.base, st.planes, st.od, st.sync, *tail)
+        resident(d_r, st.base, st.planes, st.od, *tail)
+        torch.cuda.synchronize()
+        assert torch.equal(d_s, d_r) and torch.equal(d_f, d_r)
+        assert float(d_r.abs().max()) > 0
+        st.drift = d_r
+        kernels.strata_merge_sum(st.drift, st.mi, st.coords, st.upd)
+        kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+def test_stream_kernels_equal_resident_all_prefetched(cuda, long_graph, one_d):
+    """Chunks alternating between two far regions: every sync flag is 0, so
+    every chunk's drift is read during the previous chunk."""
+    st = _state(long_graph, one_d, cuda, "xl")
+    n = min(64, st.plan["cpi"])
+    rng = np.random.default_rng(9)
+    o_blk = np.where(np.arange(n) % 2 == 0, 0, 140).astype(np.int32)
+    d_arr = rng.integers(1, 2000, n).astype(np.int32)
+    flags = strata_xl.sync_flags(dict(groups=1, cgs=n, o_blk=o_blk, d_arr=d_arr))
+    assert not flags.any()
+    od = torch.as_tensor(np.stack([o_blk, d_arr], 1), device=cuda)
+    sync = torch.as_tensor(flags, device=cuda)
+    stream, resident, plain = _chunk_kernels(one_d)
+    tail = (st.eta, st.plan["cpi"], 0, n)
+    d_s, d_r, d_p = st.drift.clone(), st.drift.clone(), st.drift.clone()
+    stream(d_s, st.base, st.planes, od, sync, *tail)
+    resident(d_r, st.base, st.planes, od, *tail)
+    plain(d_p, st.base, st.planes, od, *tail)
+    torch.cuda.synchronize()
+    assert torch.equal(d_s, d_r)
+    scale = float(st.base.abs().max()) + 1
+    assert float((d_s - d_p).abs().max()) / scale <= CHUNK_TOL
+    assert float(d_r.abs().max()) > 0
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+@pytest.mark.parametrize("bs", [256, 1024, strata_xxl.XXL_BS])
+def test_blocked_merges_equal_csr_merges(cuda, wide_graph, one_d, bs, monkeypatch):
+    monkeypatch.setattr(strata_xxl, "XXL_BS", bs)
+    st = _state(wide_graph, one_d, cuda, "xxl")
+    assert st.bsch.bs == bs
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    S = st.bsch.num_steps
+    st.drift[:, :S] = torch.randn(st.drift[:, :S].shape, generator=gen, device=cuda)
+    c_b, u_b, c_k, u_k = (t.clone() for t in (st.coords, st.upd, st.coords, st.upd))
+    kernels.strata_merge_sum_blocked(st.drift, st.mi, st.bsch, c_b, u_b)
+    kernels.strata_merge_sum(st.drift, st.mi, c_k, u_k)
+    c_p, u_p = st.coords.clone(), st.upd.clone()
+    strata_sgd.merge_sum_blocked_plain(st.drift, st.mi, st.bsch, c_p, u_p)
+    torch.cuda.synchronize()
+    assert torch.equal(c_b, c_k) and torch.equal(u_b, u_k)
+    cscale = float(c_p.abs().max()) + 1
+    assert float((u_b - u_p).abs().max()) / cscale <= MERGE_TOL
+
+    d_b, b_b, d_k, b_k = (t.clone() for t in (st.drift, st.base, st.drift, st.base))
+    kernels.strata_merge_bcast_blocked(d_b, b_b, st.mi, st.bsch, u_k)
+    kernels.strata_merge_bcast(d_k, b_k, st.mi, u_k)
+    torch.cuda.synchronize()
+    assert torch.equal(b_b, b_k) and torch.equal(d_b, d_k) and not d_b.any()
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+def test_routes_equal_on_card(cuda, wide_graph, one_d, monkeypatch):
+    """The whole run on each route: the XL and XXL kernels give the
+    resident kernels' coordinates, bit for bit, and the CPU's within the
+    chunk tolerance."""
+    monkeypatch.setattr(strata_xxl, "XXL_BS", 1024)
+    kw = dict(iter_max=3, min_term_updates=3 * 1024)
+    if one_d:
+        cfg = sgd.derive_config_1d(wide_graph, **kw)
+        run = lambda route, dev: strata_sgd.path_sgd_1d_strata(
+            wide_graph, cfg, None, dev, route).cpu().numpy()
+    else:
+        cfg = sgd.derive_config_2d(wide_graph, **kw)
+        c0 = init_layout(wide_graph)
+        run = lambda route, dev: strata_sgd.path_sgd_2d_strata(
+            wide_graph, c0, cfg, dev, route).cpu().numpy()
+    before = dict(kernels.LAUNCHES)
+    res = run("resident", cuda)
+    for route in ("xl", "xxl"):
+        np.testing.assert_array_equal(run(route, cuda), res)
+    on_cpu = run("resident", "cpu")
+    assert np.abs(res - on_cpu).max() / (np.abs(on_cpu).max() + 1) <= CHUNK_TOL
+    for n in ("strata_chunks_1d_stream" if one_d else "strata_chunks_2d_stream",
+              "strata_merge_sum_blocked", "strata_merge_bcast_blocked"):
+        assert kernels.LAUNCHES[n] > before[n]
+
+
+def test_new_wrappers_reject_bad_arguments(cuda, wide_graph):
+    st = _state(wide_graph, False, cuda, "xxl")
+    p = st.plan
+    tail = (st.eta, p["cpi"], 0, p["cgs"])
+    chunks = kernels.strata_chunks_2d_stream
+    for bad_sync in (st.sync.cpu(), st.sync.long(), st.sync[:-1]):
+        with pytest.raises(ValueError):
+            chunks(st.drift, st.base, st.planes, st.od, bad_sync, *tail)
+    with pytest.raises(ValueError):
+        kernels.strata_chunks_1d_stream(st.drift, st.base, st.planes, st.od, st.sync, *tail)
+    bs = st.bsch
+    for bad in (dataclasses.replace(bs, tile=bs.tile.cpu()),
+                dataclasses.replace(bs, tile=bs.tile.long()),
+                dataclasses.replace(bs, block=bs.block[:-1]),
+                dataclasses.replace(bs, bs=bs.bs + 1),
+                dataclasses.replace(bs, bs=1 << 16)):
+        with pytest.raises(ValueError):
+            kernels.strata_merge_sum_blocked(st.drift, st.mi, bad, st.coords, st.upd)
+        with pytest.raises(ValueError):
+            kernels.strata_merge_bcast_blocked(st.drift, st.base, st.mi, bad, st.upd)
+    with pytest.raises(ValueError):
+        kernels.strata_merge_sum_blocked(st.drift.double(), st.mi, bs, st.coords, st.upd)
+    with pytest.raises(ValueError):
+        kernels.strata_merge_bcast_blocked(st.drift, st.base[:1].contiguous(), st.mi, bs,
+                                           st.upd)

@@ -1,0 +1,250 @@
+"""The port's XXL route against odgi_tpu's block-merge kernels
+(ops/pallas_sgd_xxl.py, interpret mode) and its host pieces.
+
+The block size is shrunk to 1024 endpoints on both sides (the JAX suite's
+own setting, tests/test_pallas_sgd_xxl.py), so a small graph runs
+multi-block merges; node ids are shuffled so the relabel by first visit is
+not the identity.
+
+- `locality_order`, the relabel, `block_geometry` and the schedule's rows
+  0-4 equal the JAX package's byte for byte.
+- The blocked plain merges equal the CSR plain merges exactly, and a
+  schedule that misses an entry shows up as a difference.
+- The "xxl" route equals the port's "resident" route exactly; it is within
+  1e-6 of the coordinate scale of the exact twins and within 1e-5 of the
+  JAX XXL kernels (their f32 + TwoSum coordinates and bf16-pass merge sums,
+  see tests/test_torch_xl.py).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from odgi_tpu.algorithms.layout import init_layout as j_init_layout
+from odgi_tpu.core.graph import GraphBuilder
+from odgi_tpu.ops import pallas_sgd as ps
+from odgi_tpu.ops import pallas_sgd_xxl as jxxl
+from odgi_tpu.ops import sgd as j_sgd
+
+from odgi_tpu_torch.convert import graph_from_arrays, graph_to_arrays
+from odgi_tpu_torch.ops import sgd, strata_sgd, strata_xxl
+
+BS = 1024
+TWIN_TOL = 1e-6
+KERNEL_TOL = 1e-5
+KW = dict(iter_max=2, min_term_updates=3 * 1024)
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    """2000 nodes, 3 paths x 1800 steps with jumps across the id range
+    (tests/test_pallas_sgd_xxl.py), node ids shuffled."""
+    rng = np.random.default_rng(23)
+    b = GraphBuilder()
+    N = 2000
+    for i in range(1, N + 1):
+        b.add_node(i, b"ACGT")
+    for i in range(1, N):
+        b.add_edge(i, False, i + 1, False)
+    for pi in range(3):
+        p = b.add_path(f"p{pi}")
+        n = 1
+        for _ in range(1800):
+            b.append_step(p, n, bool(rng.integers(0, 2)))
+            n = int(np.clip(n + rng.integers(-40, 41), 1, N))
+    gj = b.build().apply_ordering(np.random.default_rng(5).permutation(N))
+    return gj, graph_from_arrays(graph_to_arrays(gj))
+
+
+@pytest.fixture
+def small_blocks(monkeypatch):
+    monkeypatch.setattr(jxxl, "XXL_BS", BS)
+    monkeypatch.setattr(strata_xxl, "XXL_BS", BS)
+
+
+def _rel_err(port, ref):
+    return np.abs(port - ref).max() / (np.abs(ref).max() + 1)
+
+
+# ---------------------------------------------------------------------------
+# Host pieces
+# ---------------------------------------------------------------------------
+
+
+def test_locality_order_and_relabel(graphs):
+    gj, gt = graphs
+    order = strata_xxl.locality_order(gt)
+    np.testing.assert_array_equal(order, jxxl._locality_order(gj))
+    assert not np.array_equal(order, np.arange(gt.num_nodes))
+    g_run, order2 = strata_xxl.relabel(gt)
+    gj_run, jorder = jxxl._relabel_cached(gj)
+    np.testing.assert_array_equal(order2, jorder)
+    for name, want in graph_to_arrays(gj_run).items():
+        got = getattr(g_run, name)
+        if name == "path_names":
+            assert tuple(got) == want
+        else:
+            assert np.asarray(got).tobytes() == np.asarray(want).tobytes(), name
+    g_again, none = strata_xxl.relabel(g_run)
+    assert g_again is g_run and none is None
+
+
+def test_relabel_coords_round_trip(graphs):
+    _, gt = graphs
+    _, order = strata_xxl.relabel(gt)
+    rng = np.random.default_rng(3)
+    for shape in ((2 * gt.num_nodes, 2), (gt.num_nodes,)):
+        c = rng.normal(size=shape)
+        run = strata_xxl.relabel_coords(c, order)
+        if c.ndim == 2:  # as path_sgd_2d_pallas_xxl relabels coords0
+            want = c.reshape(-1, 2, 2)[order].reshape(-1, 2)
+        else:
+            want = c[order]
+        np.testing.assert_array_equal(run, want)
+        back = strata_xxl.unrelabel(torch.from_numpy(run), order).numpy()
+        np.testing.assert_array_equal(back, c)
+
+
+@pytest.mark.parametrize("idx_count,bs", [
+    (1, 1024), (4002, 1024), (2001, 1024), (2_000_002, 2048), (1_000_001, 2048),
+    (20_002, 32768), (128 * 16, 2048), (128 * 16 + 1, 2048),
+])
+def test_block_geometry(idx_count, bs):
+    assert strata_xxl.block_geometry(idx_count, bs) == jxxl._block_geometry(idx_count, bs)
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+@pytest.mark.parametrize("bs", [BS, 256, strata_xxl.XXL_BS])
+def test_schedule_byte_equal(graphs, one_d, bs):
+    gj, gt = graphs
+    g_run, _ = strata_xxl.relabel(gt)
+    gj_run, _ = jxxl._relabel_cached(gj)
+    for port_g, jax_g in ((gt, gj), (g_run, gj_run)):
+        sched, K, nb = strata_xxl.build_schedule(port_g, bs, one_d)
+        jsched, jK, jnb = jxxl._build_schedule(jax_g, bs, one_d)
+        assert (K, nb) == (jK, jnb) and sched.shape == jsched.shape
+        assert sched[:5].tobytes() == jsched[:5].tobytes()
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+def test_schedule_covers_every_step(graphs, one_d):
+    _, gt = graphs
+    g_run, _ = strata_xxl.relabel(gt)
+    bsch = strata_xxl.BlockSchedule.build(g_run, one_d, "cpu", BS)
+    tile, block = bsch.tile.numpy(), bsch.block.numpy()
+    off = bsch.blk_off.numpy()
+    ep = g_run.step_handle >> 1 if one_d else g_run.step_handle
+    want = set(zip(ep // BS, np.arange(g_run.num_steps) // strata_xxl.TILE))
+    assert set(zip(block, tile)) == want and len(tile) == len(want)
+    assert off[0] == 0 and off[-1] == len(tile)
+    for b in range(bsch.num_blocks):
+        assert (block[off[b]:off[b + 1]] == b).all()
+        assert (np.diff(tile[off[b]:off[b + 1]]) > 0).all()
+    # relabeling by first visit needs fewer tile reads than the shuffled ids
+    assert len(tile) <= strata_xxl.build_schedule(gt, BS, one_d)[1]
+
+
+# ---------------------------------------------------------------------------
+# Blocked plain merges
+# ---------------------------------------------------------------------------
+
+
+def _random_state(gt, one_d, seed):
+    g_run, _ = strata_xxl.relabel(gt)
+    init = (gt.node_offset.astype(np.float32) if one_d
+            else j_init_layout(gt, "d"))
+    derive = sgd.derive_config_1d if one_d else sgd.derive_config_2d
+    st = strata_sgd.StrataState.build(gt, derive(gt, **KW), init, one_d,
+                                      torch.device("cpu"), "xxl")
+    rng = np.random.default_rng(seed)
+    drift = np.zeros(st.drift.shape, np.float32)
+    drift[:, : g_run.num_steps] = rng.normal(size=(drift.shape[0], g_run.num_steps))
+    st.drift.copy_(torch.from_numpy(drift))
+    st.upd.normal_(generator=torch.Generator().manual_seed(seed))
+    st.upd[:, st.mi.recip.shape[0]:] = 0.0
+    return st, g_run
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+@pytest.mark.parametrize("bs", [BS, 256])
+def test_blocked_merges_equal_csr_merges(graphs, one_d, bs):
+    _, gt = graphs
+    st, g_run = _random_state(gt, one_d, 2)
+    bsch = strata_xxl.BlockSchedule.build(g_run, one_d, "cpu", bs)
+    assert bsch.num_blocks >= 2
+
+    c_b, u_b, c_p, u_p = (t.clone() for t in (st.coords, st.upd, st.coords, st.upd))
+    strata_sgd.merge_sum_blocked_plain(st.drift, st.mi, bsch, c_b, u_b)
+    strata_sgd.merge_sum_plain(st.drift, st.mi, c_p, u_p)
+    assert torch.equal(c_b, c_p) and torch.equal(u_b, u_p)
+
+    b_b, b_p = st.base.clone(), st.base.clone()
+    d_b, d_p = st.drift.clone(), st.drift.clone()
+    strata_sgd.merge_bcast_blocked_plain(d_b, b_b, st.mi, bsch, u_b)
+    strata_sgd.merge_bcast_plain(d_p, b_p, st.mi, u_b)
+    assert torch.equal(b_b, b_p) and not d_b.any()
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+def test_schedule_fault_shows_on_cpu(graphs, one_d):
+    """Dropping one entry from the schedule changes the blocked sums."""
+    _, gt = graphs
+    st, _ = _random_state(gt, one_d, 4)
+    bs = st.bsch
+    k = bs.num_entries // 2
+    keep = torch.ones(bs.num_entries, dtype=torch.bool)
+    keep[k] = False
+    b = int(bs.block[k])
+    off = bs.blk_off.clone()
+    off[b + 1:] -= 1
+    broken = dataclasses.replace(bs, tile=bs.tile[keep], block=bs.block[keep], blk_off=off)
+    c_b, u_b, c_p, u_p = (t.clone() for t in (st.coords, st.upd, st.coords, st.upd))
+    strata_sgd.merge_sum_blocked_plain(st.drift, st.mi, broken, c_b, u_b)
+    strata_sgd.merge_sum_plain(st.drift, st.mi, c_p, u_p)
+    assert not torch.equal(u_b, u_p)
+
+
+# ---------------------------------------------------------------------------
+# The XXL route
+# ---------------------------------------------------------------------------
+
+
+def test_xxl_route_2d(graphs, small_blocks):
+    gj, gt = graphs
+    c0 = j_init_layout(gj, "d")
+    cfg_j = j_sgd.derive_config_2d(gj, **KW)
+    ref = np.asarray(jxxl.path_sgd_2d_pallas_xxl(gj, c0, cfg_j, interpret=True))
+    twin = np.asarray(ps.path_sgd_2d_strata_xla(gj, c0, cfg_j))
+    cfg = sgd.derive_config_2d(gt, **KW)
+    xxl = strata_sgd.path_sgd_2d_strata(gt, c0, cfg, "cpu", route="xxl").numpy()
+    res = strata_sgd.path_sgd_2d_strata(gt, c0, cfg, "cpu", route="resident").numpy()
+    np.testing.assert_array_equal(xxl, res)
+    assert _rel_err(xxl, twin) <= TWIN_TOL
+    assert _rel_err(xxl, ref) <= KERNEL_TOL
+    assert np.abs(xxl - c0).max() > 1.0
+
+
+def test_xxl_route_1d(graphs, small_blocks):
+    gj, gt = graphs
+    cfg_j = j_sgd.derive_config_1d(gj, **KW)
+    ref = np.asarray(jxxl.path_sgd_1d_pallas_xxl(gj, cfg_j, interpret=True))
+    twin = np.asarray(ps.path_sgd_1d_strata_xla(gj, cfg_j))
+    cfg = sgd.derive_config_1d(gt, **KW)
+    xxl = strata_sgd.path_sgd_1d_strata(gt, cfg, None, "cpu", route="xxl").numpy()
+    res = strata_sgd.path_sgd_1d_strata(gt, cfg, None, "cpu", route="resident").numpy()
+    np.testing.assert_array_equal(xxl, res)
+    assert _rel_err(xxl, twin) <= TWIN_TOL
+    assert _rel_err(xxl, ref) <= KERNEL_TOL
+    assert np.abs(xxl - gt.node_offset).max() > 1.0
+
+
+def test_xxl_state(graphs, small_blocks):
+    _, gt = graphs
+    st = strata_sgd.StrataState.build(gt, sgd.derive_config_2d(gt, **KW),
+                                      j_init_layout(gt, "d"), False,
+                                      torch.device("cpu"), "xxl")
+    assert st.order is not None and st.bsch.bs == BS
+    assert st.bsch.num_blocks * BS >= 2 * gt.num_nodes
+    assert st.sync.shape == (st.od.shape[0],)
