@@ -10,27 +10,37 @@ Phases, each printing one line or more:
      ptxas's registers, shared memory and spills per kernel;
   3. the resident kernels against their plain PyTorch versions on the card,
      group by group over an iter_max=2 plan of the smoke graph (1D and 2D),
-     with the stated tolerances;
+     with the stated tolerances; the leveled 2D chunk kernel equals the
+     chain kernel strata_chunks_2d, and strata_merge_sum equals the
+     ascending-order loop merge_sum_ordered_plain, bit for bit;
   4. the smoke path at the default schedules through the entry points:
      synthetic GFA (1,500,000 steps = 30 paths x 50,000 steps over 10,000
      nodes) -> parse_gfa -> sort_pipeline("Ygs") -> layout_graph ->
      save_layout/load_layout (.lay) -> sum_of_path_node_distances, with the
-     quality and plan gates (the resident route);
+     quality and plan gates (the resident route); the layout again with its
+     chunk phase forced onto the chain kernel gives the same coordinates,
+     bit for bit;
   5. the stream and blocked kernels against their plain versions and
-     against the resident kernels, on short plans (a few hundred chunks a
-     group) of the XL and the 1M-node graphs;
+     against the resident kernels, and the leveled kernel against the chain
+     kernels, on short plans (a few hundred chunks a group) of the XL and
+     the 1M-node graphs;
   6. the XL path: 5,000,000 steps (100 paths x 50,000 over 10,000 nodes)
      -> sort_pipeline("Ygs") -> layout_graph -> .lay -> stats, on the "xl"
-     route in 1D and 2D; the layout forced onto the "resident" route gives
-     the same coordinates, bit for bit;
+     route in 1D and 2D; the layout forced onto the "resident" route with
+     the chain kernel gives the same coordinates, bit for bit;
   7. the 1M-node path (tools/bigscale_bench.py --shuffle --quality):
      10,000,000 steps (10 paths over 1,000,000 nodes) -> sort_pipeline("Y")
      and layout_graph on the "xxl" route, gated on BIGSCALE_r05.json's start
-     values and quality, then sort_pipeline("gs") and a .lay round trip.
+     values and quality, then sort_pipeline("gs") and a .lay round trip;
+     then the leveled kernel against the stream chain kernel on the first
+     groups of the full 2D plan.
 Every path runs with the launch counts set to 0 just before it and read
-just after.  The line before the card line is one JSON object with every
-kernel's launches, error, times and bound; the last line is the ok/device
-object.  Any failed phase exits non-zero and prints no ok line.
+just after; each prints the conflict levels of its 2D plan and the host
+seconds that built them (host_s.levels_2d).  The line before the card line
+is one JSON object with every kernel's launches, error, times and bound
+(the chain 2D kernels, off the main path, with the times of their
+comparison launches); the last line is the ok/device object.  Any failed
+phase exits non-zero and prints no ok line.
 """
 
 from __future__ import annotations
@@ -47,7 +57,8 @@ import torch
 
 import odgi_tpu_torch as ot
 from odgi_tpu_torch.algorithms import groom, layout, path_sgd_sort, topological
-from odgi_tpu_torch.ops import kernels, strata_plan, strata_route, strata_sgd, strata_xxl
+from odgi_tpu_torch.ops import (kernels, strata_levels, strata_plan, strata_route, strata_sgd,
+                                strata_xxl)
 from odgi_tpu_torch.ops.sgd import derive_config_1d, derive_config_2d
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
@@ -84,6 +95,16 @@ RESIDENT = ("strata_chunks_2d", "strata_chunks_1d", "strata_merge_sum",
             "strata_merge_bcast")
 STREAM = ("strata_chunks_2d_stream", "strata_chunks_1d_stream")
 BLOCKED = ("strata_merge_sum_blocked", "strata_merge_bcast_blocked")
+LEVELS = "strata_chunks_2d_levels"
+# The 2D chain kernels: off the main path, launched only to hold the leveled
+# kernel bit-equal and to time old against new.
+CHAIN_2D = ("strata_chunks_2d", "strata_chunks_2d_stream")
+ROUTE_KERNELS = {
+    "resident": (LEVELS, "strata_chunks_1d", "strata_merge_sum", "strata_merge_bcast"),
+    "xl": (LEVELS, "strata_chunks_1d_stream", "strata_merge_sum", "strata_merge_bcast"),
+    "xxl": (LEVELS, "strata_chunks_1d_stream") + BLOCKED,
+}
+FULL_GROUPS = 2  # groups of the 1M graph's full 2D plan run on both kernels
 REPLACES = {
     "strata_chunks_2d": "odgi_tpu/ops/pallas_sgd.py:1105",
     "strata_chunks_1d": "odgi_tpu/ops/pallas_sgd.py:1158",
@@ -93,19 +114,22 @@ REPLACES = {
     "strata_chunks_1d_stream": "odgi_tpu/ops/pallas_sgd_xl.py:795",
     "strata_merge_sum_blocked": "odgi_tpu/ops/pallas_sgd_xxl.py:212",
     "strata_merge_bcast_blocked": "odgi_tpu/ops/pallas_sgd_xxl.py:212",
+    LEVELS: "odgi_tpu/ops/pallas_sgd.py:1105",
 }
 ALSO_REPLACES = {
-    "strata_chunks_2d_stream": "odgi_tpu/ops/pallas_sgd_xxl.py:212",
-    "strata_chunks_1d_stream": "odgi_tpu/ops/pallas_sgd_xxl.py:632",
-    "strata_merge_sum_blocked": "odgi_tpu/ops/pallas_sgd_xxl.py:632",
-    "strata_merge_bcast_blocked": "odgi_tpu/ops/pallas_sgd_xxl.py:632",
+    "strata_chunks_2d_stream": ["odgi_tpu/ops/pallas_sgd_xxl.py:212"],
+    "strata_chunks_1d_stream": ["odgi_tpu/ops/pallas_sgd_xxl.py:632"],
+    "strata_merge_sum_blocked": ["odgi_tpu/ops/pallas_sgd_xxl.py:632"],
+    "strata_merge_bcast_blocked": ["odgi_tpu/ops/pallas_sgd_xxl.py:632"],
+    LEVELS: ["odgi_tpu/ops/pallas_sgd_xl.py:363", "odgi_tpu/ops/pallas_sgd_xxl.py:212"],
 }
 # Kernels with one PyTorch call that computes the same function (an f64
 # index_add_), timed as a yardstick only.
 LIBRARY = ("strata_merge_sum", "strata_merge_sum_blocked")
 SOURCES = {**{n: "odgi_tpu_torch/csrc/strata_sgd.cu" for n in RESIDENT},
            **{n: "odgi_tpu_torch/csrc/strata_stream.cu" for n in STREAM},
-           **{n: "odgi_tpu_torch/csrc/strata_blocked.cu" for n in BLOCKED}}
+           **{n: "odgi_tpu_torch/csrc/strata_blocked.cu" for n in BLOCKED},
+           LEVELS: "odgi_tpu_torch/csrc/strata_levels.cu"}
 
 
 def fail(msg: str) -> None:
@@ -275,7 +299,8 @@ def schedule_stats(g, one_d: bool) -> dict:
 
 class Record:
     """Errors, plain and library times of the comparison phases; launch
-    times of the counted paths; bounds per counted launch."""
+    times of the counted paths; bounds per counted launch; times and bounds
+    of the chain 2D kernels' comparison launches (cmp_ms, cmp_bounds)."""
 
     def __init__(self):
         self.err = {n: {} for n in kernels.NAMES}
@@ -284,6 +309,8 @@ class Record:
         self.events = {n: {} for n in kernels.NAMES}
         self.bounds = {n: {} for n in kernels.NAMES}
         self.launches = {n: {} for n in kernels.NAMES}
+        self.cmp_ms = {n: {} for n in CHAIN_2D}
+        self.cmp_bounds = {n: {} for n in CHAIN_2D}
 
     def add(self, table: str, name: str, key: str, value) -> None:
         getattr(self, table)[name].setdefault(key, []).append(value)
@@ -323,29 +350,84 @@ def rel_err(a, b, scale: float) -> float:
 # ---------------------------------------------------------------------------
 
 
+def level_stats(p: dict, lvl_off: np.ndarray) -> dict:
+    """Depth of each group's levels (min, mean, max) and chunks a level."""
+    depth = strata_levels.depths(lvl_off)
+    return dict(groups=int(p["groups"]), cgs=int(p["cgs"]), depth_min=int(depth.min()),
+                depth_mean=float(depth.mean()), depth_max=int(depth.max()),
+                chunks_per_level=float(p["cgs"] / depth.mean()))
+
+
+def compare_levels(st, gid: int, rec: Record, key: str, chain: str,
+                   record: bool = True) -> dict:
+    """Group `gid` of a 2D state through the leveled kernel and the chain
+    kernel `chain` on the same inputs: torch.equal drift, or fail.  The
+    chain launch's time and bound go to the comparison records when
+    `record` (groups of a main path's size); returns the leveled drift and
+    both times."""
+    p = st.plan
+    tail = (st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
+    d_l, d_c = st.drift.clone(), st.drift.clone()
+    l_ms = timed(kernels.strata_chunks_2d_levels, d_l, st.base, st.planes, st.od, st.eta,
+                 p["cpi"], st.perm, st.lvl_rows[gid])
+    if chain == "strata_chunks_2d":
+        c_ms = timed(kernels.strata_chunks_2d, d_c, st.base, st.planes, st.od, *tail)
+    else:
+        c_ms = timed(kernels.strata_chunks_2d_stream, d_c, st.base, st.planes, st.od, st.sync,
+                     *tail)
+    if not torch.equal(d_l, d_c):
+        fail(f"{LEVELS} {key} group {gid}: differs from {chain} "
+             f"(max {float((d_l - d_c).abs().max()):.3e})")
+    if record:
+        rec.add("cmp_ms", chain, key, c_ms)
+        rec.add("cmp_bounds", chain, key, chunk_bounds(p, False)[gid])
+    return dict(drift=d_l, levels_ms=l_ms, chain_ms=c_ms,
+                levels=int(st.lvl_rows[gid].shape[0] - 1))
+
+
 def compare_group(st, gid: int, rec: Record, key: str) -> None:
     """Run group `gid` through each kernel and its plain version on the same
-    inputs, check them, and continue from the kernel's state."""
+    inputs, check them, and continue from the kernel's state.  2D: the
+    leveled kernel, which must equal the chain kernel bit for bit."""
     p = st.plan
     args = (st.base, st.planes, st.od, st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
     scale = float(st.base.abs().max()) + 1.0
-    chunks = kernels.strata_chunks_1d if st.one_d else kernels.strata_chunks_2d
-    plain = strata_sgd.chunks_1d_plain if st.one_d else strata_sgd.chunks_2d_plain
-    name = "strata_chunks_1d" if st.one_d else "strata_chunks_2d"
-
-    d_k, d_p = st.drift.clone(), st.drift.clone()
-    k_ms = timed(chunks, d_k, *args)
-    p_ms = timed(plain, d_p, *args)
+    line = dict(key=key, group=gid)
+    d_p = st.drift.clone()
+    if st.one_d:
+        name = "strata_chunks_1d"
+        d_k = st.drift.clone()
+        line["chunk_ms"] = timed(kernels.strata_chunks_1d, d_k, *args)
+        p_ms = timed(strata_sgd.chunks_1d_plain, d_p, *args)
+    else:
+        name = LEVELS
+        lv = compare_levels(st, gid, rec, key, "strata_chunks_2d")
+        d_k = lv["drift"]
+        line.update(chunk_ms=lv["levels_ms"], chain_chunk_ms=lv["chain_ms"],
+                    levels=lv["levels"])
+        p_ms = timed(strata_sgd.chunks_2d_plain, d_p, *args)
     err = float((d_k - d_p).abs().max())
-    rec.add("err", name, key, err)
-    rec.add("plain_ms", name, key, p_ms)
+    names = (name,) if st.one_d else (name, "strata_chunks_2d")  # equal drift
+    for n in names:
+        rec.add("err", n, key, err)
+        rec.add("plain_ms", n, key, p_ms)
     if not err / scale <= CHUNK_TOL:
         fail(f"{name} group {gid}: max|drift delta|/scale {err / scale:.3e} > {CHUNK_TOL}")
 
     st.drift = d_k
     s_ms, sp_ms, b_ms, bp_ms = compare_merges(st, gid, rec, key)
-    say("kernel_vs_plain", key=key, group=gid, chunk_ms=k_ms, chunk_plain_ms=p_ms,
-        sum_ms=s_ms, sum_plain_ms=sp_ms, bcast_ms=b_ms, bcast_plain_ms=bp_ms)
+    say("kernel_vs_plain", **line, chunk_plain_ms=p_ms, sum_ms=s_ms, sum_plain_ms=sp_ms,
+        sum_block_eps=st.mi.block_eps, bcast_ms=b_ms, bcast_plain_ms=bp_ms)
+
+
+def check_ordered_sum(st, c_k, u_k, label: str) -> None:
+    """strata_merge_sum's output against merge_sum_ordered_plain on the
+    same inputs: bit-equal, or fail."""
+    c_o, u_o = st.coords.clone(), st.upd.clone()
+    strata_sgd.merge_sum_ordered_plain(st.drift, st.mi, c_o, u_o)
+    if not (torch.equal(c_k, c_o) and torch.equal(u_k, u_o)):
+        fail(f"strata_merge_sum {label}: differs from merge_sum_ordered_plain "
+             f"(max {float((u_k - u_o).abs().max()):.3e})")
 
 
 def compare_merges(st, gid: int, rec: Record, key: str):
@@ -357,6 +439,7 @@ def compare_merges(st, gid: int, rec: Record, key: str):
     c_p, u_p = st.coords.clone(), st.upd.clone()
     s_ms = timed(kernels.strata_merge_sum, d_k, st.mi, c_k, u_k)
     sp_ms = timed(strata_sgd.merge_sum_plain, d_k, st.mi, c_p, u_p)
+    check_ordered_sum(st, c_k, u_k, f"{key} group {gid}")
     cscale = float(c_p.abs().max()) + 1.0
     err = max(float((c_k - c_p).abs().max()), float((u_k - u_p).abs().max()))
     rec.add("err", "strata_merge_sum", key, err)
@@ -390,6 +473,9 @@ def warm_up(st) -> None:
     chunks = kernels.strata_chunks_1d if st.one_d else kernels.strata_chunks_2d
     chunks(st.drift.clone(), *args, *tail)
     plain(st.drift.clone(), *args, *tail)
+    if not st.one_d:
+        kernels.strata_chunks_2d_levels(st.drift.clone(), *args, st.eta, p["cpi"], st.perm,
+                                        st.lvl_rows[0][:2])
     for merge in (kernels.strata_merge_sum, strata_sgd.merge_sum_plain):
         merge(st.drift, st.mi, st.coords.clone(), st.upd.clone())
     for bcast in (kernels.strata_merge_bcast, strata_sgd.merge_bcast_plain):
@@ -420,7 +506,7 @@ def phase_kernels(g, dev, rec: Record) -> None:
     torch.cuda.synchronize()
     say("kernels_vs_plain", **{n: dict(max_abs_err=max(x for v in rec.err[n].values()
                                                        for x in v))
-                               for n in RESIDENT})
+                               for n in RESIDENT + (LEVELS,)})
 
 
 # ---------------------------------------------------------------------------
@@ -432,9 +518,11 @@ def phase_kernels(g, dev, rec: Record) -> None:
 def compare_stream_group(st, gid: int, rec: Record, key: str) -> None:
     """Group `gid` through the stream chunk kernel, the resident chunk
     kernel and the plain version on the same inputs; the stream kernel must
-    equal the resident one exactly and the plain one within CHUNK_TOL.  On
-    the "xxl" route the same for the blocked merges (the plain versions on
-    group 0 only).  Continues from the new kernels' state."""
+    equal the resident one exactly and the plain one within CHUNK_TOL, and
+    in 2D the leveled kernel must equal them exactly.  On the "xxl" route
+    the same for the blocked merges (the plain versions on group 0 only),
+    and the CSR sum must equal merge_sum_ordered_plain.  Continues from the
+    new kernels' state."""
     p = st.plan
     args = (st.base, st.planes, st.od)
     tail = (st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
@@ -461,6 +549,13 @@ def compare_stream_group(st, gid: int, rec: Record, key: str) -> None:
         fail(f"{name} {key} group {gid}: max|drift delta|/scale {err / scale:.3e} > {CHUNK_TOL}")
     line = dict(key=key, group=gid, chunk_ms=s_ms, resident_chunk_ms=r_ms, chunk_plain_ms=p_ms,
                 sync_ones=int(st.sync[gid * p["cgs"]:(gid + 1) * p["cgs"]].sum()), cgs=p["cgs"])
+    if not st.one_d:
+        lv = compare_levels(st, gid, rec, key, "strata_chunks_2d", record=False)
+        if not torch.equal(lv["drift"], d_s):
+            fail(f"{LEVELS} {key} group {gid}: differs from {name}")
+        rec.add("err", LEVELS, key, err)
+        rec.add("plain_ms", LEVELS, key, p_ms)
+        line.update(levels_chunk_ms=lv["levels_ms"], levels=lv["levels"])
     st.drift = d_s
 
     if st.route != "xxl":  # the XL route merges with the CSR kernels
@@ -472,16 +567,19 @@ def compare_stream_group(st, gid: int, rec: Record, key: str) -> None:
     c_b, u_b, c_k, u_k = (t.clone() for t in (st.coords, st.upd, st.coords, st.upd))
     line["sum_ms"] = timed(kernels.strata_merge_sum_blocked, st.drift, st.mi, st.bsch, c_b, u_b)
     line["resident_sum_ms"] = timed(kernels.strata_merge_sum, st.drift, st.mi, c_k, u_k)
+    line["resident_sum_block_eps"] = st.mi.block_eps
     if not (torch.equal(c_b, c_k) and torch.equal(u_b, u_k)):
         fail(f"strata_merge_sum_blocked {key} group {gid}: differs from strata_merge_sum")
     cscale = float(c_k.abs().max()) + 1.0
     if gid == 0:
+        check_ordered_sum(st, c_k, u_k, f"{key} group {gid}")
         c_p, u_p = st.coords.clone(), st.upd.clone()
         sp_ms = timed(strata_sgd.merge_sum_blocked_plain, st.drift, st.mi, st.bsch, c_p, u_p)
         err = max(float((c_b - c_p).abs().max()), float((u_b - u_p).abs().max()))
         rec.add("err", "strata_merge_sum_blocked", key, err)
         rec.add("plain_ms", "strata_merge_sum_blocked", key, sp_ms)
-        rec.add("library_ms", "strata_merge_sum_blocked", key, library_merge_sum(st))
+        line["sum_library_ms"] = library_merge_sum(st)
+        rec.add("library_ms", "strata_merge_sum_blocked", key, line["sum_library_ms"])
         line["sum_plain_ms"] = sp_ms
         if not err / cscale <= MERGE_TOL:
             fail(f"strata_merge_sum_blocked {key}: max|delta|/scale {err / cscale:.3e} "
@@ -556,6 +654,7 @@ class KernelTimes:
             "strata_merge_bcast": lambda a: "1d" if a[3].shape[0] == 1 else "2d",
             "strata_merge_sum_blocked": lambda a: "1d" if a[3].shape[0] == 1 else "2d",
             "strata_merge_bcast_blocked": lambda a: "1d" if a[4].shape[0] == 1 else "2d",
+            LEVELS: lambda a: "2d",
         }
         for n in kernels.NAMES:
             setattr(kernels, n, wrap(n, self.orig[n], dim[n]))
@@ -581,16 +680,32 @@ class KernelTimes:
 
 def counted(label: str, rec: Record, fn):
     """Run `fn` with the launch counts set to 0 just before and read just
-    after; per-launch times go to `rec`."""
+    after; per-launch times go to `rec`.  The conflict levels the run
+    builds, and the host seconds they take, go to out["levels_2d"]."""
     times = KernelTimes(label)
+    built = []
+    build_levels = strata_levels.chunk_levels
+
+    def timed_levels(p):
+        t0 = time.perf_counter()
+        perm, lvl_off = build_levels(p)
+        built.append((time.perf_counter() - t0, level_stats(p, lvl_off)))
+        return perm, lvl_off
+
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     times.install()
+    strata_levels.chunk_levels = timed_levels
     try:
         out = fn()
     finally:
         times.uninstall()
+        strata_levels.chunk_levels = build_levels
     torch.cuda.synchronize()
+    if len(built) != 1:
+        fail(f"{label}: {len(built)} level builds, expected one (the 2D layout)")
+    out["levels_2d"] = dict(seconds=built[0][0], **built[0][1])
+    say("levels", path=label, **out["levels_2d"])
     out["launches"] = dict(kernels.LAUNCHES)
     out["sgd_device_s"] = times.into(rec)
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
@@ -606,7 +721,7 @@ def check_routes(out: dict, label: str, route: str, routes: dict) -> None:
     say("routes", path=label, routes=routes)
     if any(r != route for r in routes.values()):
         fail(f"{label}: routes {routes}, expected {route!r}")
-    used = {"resident": RESIDENT, "xl": STREAM + RESIDENT[2:], "xxl": STREAM + BLOCKED}[route]
+    used = ROUTE_KERNELS[route]
     for n in kernels.NAMES:
         c = out["launches"][n]
         if n in used and c <= 0:
@@ -654,8 +769,7 @@ def lay_roundtrip(coords: np.ndarray, path: str, dev, out: dict) -> None:
 def add_bounds(rec: Record, label: str, g_1d, p1: dict, g_2d, p2: dict,
                route: str) -> None:
     """Bounds of every launch the path made, per kernel and dimension."""
-    suffix = "" if route == "resident" else "_stream"
-    chunks = (f"strata_chunks_1d{suffix}", f"strata_chunks_2d{suffix}")
+    chunks = ("strata_chunks_1d" if route == "resident" else "strata_chunks_1d_stream", LEVELS)
     suffix = "_blocked" if route == "xxl" else ""
     merges = (f"strata_merge_sum{suffix}", f"strata_merge_bcast{suffix}")
     for (g, p, one_d, tag) in ((g_1d, p1, True, "1d"), (g_2d, p2, False, "2d")):
@@ -663,6 +777,37 @@ def add_bounds(rec: Record, label: str, g_1d, p1: dict, g_2d, p2: dict,
         rec.bounds[chunks[0 if one_d else 1]][key] = chunk_bounds(p, one_d)
         rec.bounds[merges[0]][key] = [merge_sum_bound(g, one_d)]
         rec.bounds[merges[1]][key] = [merge_bcast_bound(g, p["data"].num_slots, one_d)]
+
+
+def run_on_chain(fn, rec: Record, key: str, p: dict):
+    """Run `fn` with the 2D chunk phase forced onto the chain kernel
+    strata_chunks_2d (the chunks each group's levels cover, in chain
+    order); each chain launch's time and bound go to the comparison
+    records under `key`.  `p` is the 2D plan `fn` runs."""
+    leveled = kernels.strata_chunks_2d_levels
+    bounds = chunk_bounds(p, False)
+    launched = []
+
+    def chain(drift, base, planes, od, eta, cpi, perm, lvl_off):
+        off = lvl_off.cpu()
+        g0, n = int(off[0]), int(off[-1] - off[0])
+        if n != p["cgs"]:
+            fail(f"{key}: a group of {n} chunks, the plan has {p['cgs']}")
+        t = Timer()
+        kernels.strata_chunks_2d(drift, base, planes, od, eta, cpi, g0, n)
+        launched.append((t.stop(), bounds[g0 // n]))
+
+    kernels.strata_chunks_2d_levels = chain
+    try:
+        out = fn()
+    finally:
+        kernels.strata_chunks_2d_levels = leveled
+    if len(launched) != p["groups"]:
+        fail(f"{key}: {len(launched)} chain launches for {p['groups']} groups")
+    for t, b in launched:
+        rec.add("cmp_ms", "strata_chunks_2d", key, t.ms())
+        rec.add("cmp_bounds", "strata_chunks_2d", key, b)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -714,9 +859,18 @@ def phase_smoke(gfa_path: str, tmp: str, dev, rec: Record) -> dict:
         t0 = time.perf_counter()
         fn(g2)
         host_s[name] = time.perf_counter() - t0
+    host_s["levels_2d"] = out["levels_2d"]["seconds"]
     out["host_s"] = host_s
     add_rates(out, p1, p2, "sort_Ygs")
+    # the same layout with the chunk phase on the chain kernel: the same
+    # coordinates, bit for bit
+    t0 = time.perf_counter()
+    chain = run_on_chain(lambda: ot.layout_graph(g2, device=dev), rec, "smoke/2d", p2)
+    out["layout_chain_s"] = sync_wall(t0)
+    out["chain_equal"] = bool(np.array_equal(chain, coords))
     say("main_path", path="smoke", **out, twin=TWIN)
+    if not out["chain_equal"]:
+        fail(f"smoke layout differs from the chain kernel's (max {np.abs(chain - coords).max()})")
 
     if not np.isfinite(coords).all():
         fail("layout coordinates not finite")
@@ -768,9 +922,12 @@ def phase_xl(g, tmp: str, dev, rec: Record) -> dict:
                              total_valid=p["total_valid"], slots=p["data"].num_slots)
                    for tag, p in (("1d", p1), ("2d", p2))}
 
-    # the same layout on the resident route: the same coordinates, bit for bit
+    out["host_s"] = dict(levels_2d=out["levels_2d"]["seconds"])
+    # the same layout on the resident route with the chain kernel: the same
+    # coordinates, bit for bit
     t0 = time.perf_counter()
-    res = strata_sgd.path_sgd_2d_strata(g2, c0, cfg2, dev, route="resident")
+    res = run_on_chain(lambda: strata_sgd.path_sgd_2d_strata(g2, c0, cfg2, dev, route="resident"),
+                       rec, "xl/2d", p2)
     out["layout_resident_sgd_s"] = sync_wall(t0)
     res = layout.pack_components(g2, res.cpu().numpy())
     out["resident_equal"] = bool(np.array_equal(res, coords))
@@ -848,6 +1005,7 @@ def phase_big(g, tmp: str, dev, rec: Record) -> dict:
         out["sort_gs_s"] = time.perf_counter() - t0
     finally:
         path_sgd_sort.apply_groom, path_sgd_sort.topological_order = saved
+    host_s["levels_2d"] = out["levels_2d"]["seconds"]
     out["host_s"] = host_s
     out["nt_after_Ygs"] = ot.sum_of_path_node_distances(gYgs, device=dev).all_nt_space
     lay_roundtrip(coords, os.path.join(tmp, "big.lay"), dev, out)
@@ -861,7 +1019,26 @@ def phase_big(g, tmp: str, dev, rec: Record) -> dict:
         fail(f"1M stress after layout {out['stress_after']} > {BIG_STRESS_AFTER_MAX}")
     g_run, _ = strata_xxl.relabel(g)
     add_bounds(rec, "big", g_run, p1, g_run, p2, "xxl")
+    levels_full(g, cfg2, c0, dev, rec)
     return out
+
+
+def levels_full(g, cfg, c0, dev, rec: Record) -> None:
+    """The first FULL_GROUPS groups of the 1M graph's full 2D plan (the
+    layout's) through the leveled kernel and the stream chain kernel, on
+    the "xxl" route's state: bit-equal drift; the chain's times go to the
+    comparison records."""
+    t0 = time.perf_counter()
+    st = strata_sgd.StrataState.build(g, cfg, c0, False, dev, "xxl")
+    build_s = time.perf_counter() - t0
+    for gid in range(FULL_GROUPS):
+        lv = compare_levels(st, gid, rec, "big/2d", "strata_chunks_2d_stream")
+        say("levels_vs_chain", key="big/2d", group=gid, cgs=st.plan["cgs"], levels=lv["levels"],
+            levels_ms=lv["levels_ms"], chain_ms=lv["chain_ms"], state_build_s=build_s)
+        st.drift = lv["drift"]
+        kernels.strata_merge_sum(st.drift, st.mi, st.coords, st.upd)
+        kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -874,10 +1051,33 @@ def kernel_line(rec: Record) -> dict:
     counted path, the bound of those launches, and the plain version's and
     the library call's time per call on the same graph and dimension
     (weighted by the launches per path and dimension), and the same per
-    path."""
+    path.  The chain 2D kernels have no launch on a counted path: their
+    times and bounds are those of their comparison launches on groups of a
+    main path's size."""
     mean = lambda xs: sum(xs) / len(xs) if xs else None
     out = []
     for n in kernels.NAMES:
+        common = dict(name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],
+                      also_replaces=ALSO_REPLACES.get(n),
+                      max_abs_err=max(x for v in rec.err[n].values() for x in v))
+        if n in CHAIN_2D:
+            if rec.events[n] or rec.launches[n]:
+                fail(f"{n}: launched on a counted path {rec.launches[n]}")
+            per_path = {}
+            for k, times in sorted(rec.cmp_ms[n].items()):
+                vals = [bound_ms(b) for b in rec.cmp_bounds[n][k]]
+                per_path[k] = dict(comparison_launches=len(times), ms=mean(times),
+                                   bound_ms=mean([v for v, _ in vals]), bound_by=max(vals)[1])
+            times = [t for v in rec.cmp_ms[n].values() for t in v]
+            bounds = [bound_ms(b) for v in rec.cmp_bounds[n].values() for b in v]
+            if not times:
+                fail(f"{n}: no comparison launch was timed")
+            plain = [t for v in rec.plain_ms[n].values() for t in v]
+            out.append(dict(**common, launches=0, comparison_launches=len(times),
+                            ms=mean(times), plain_ms=mean(plain),
+                            bound_ms=mean([v for v, _ in bounds]), bound_by=max(bounds)[1],
+                            library_ms=None, per_path=per_path))
+            continue
         ev = rec.events[n]
         launches = sum(len(v) for v in ev.values())
         if launches == 0 or launches != sum(rec.launches[n].values()):
@@ -895,9 +1095,7 @@ def kernel_line(rec: Record) -> dict:
         wsum = lambda f: sum(v["launches"] * v[f] for v in per_path.values()) / launches
         heaviest = max(per_path.values(), key=lambda v: v["launches"] * v["bound_ms"])
         out.append(dict(
-            name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],
-            also_replaces=ALSO_REPLACES.get(n), launches=launches,
-            max_abs_err=max(x for v in rec.err[n].values() for x in v),
+            **common, launches=launches,
             ms=sum(sum(v) for v in ev.values()) / launches,
             plain_ms=wsum("plain_ms"), bound_ms=wsum("bound_ms"),
             bound_by=heaviest["bound_by"],
@@ -926,7 +1124,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     report = [ln.strip() for ln in kernels.ptxas_report().splitlines()
               if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
-    say("build", seconds=build_s, ptxas=report)
+    say("build", seconds=build_s, ptxas=report, levels_grid_blocks=kernels.levels_grid_blocks())
 
     rec = Record()
     with tempfile.TemporaryDirectory() as tmp:

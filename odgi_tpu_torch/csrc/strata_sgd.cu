@@ -27,11 +27,14 @@ namespace {
 
 using strata::CHUNK;
 using strata::LANE;
-using strata::coin_hash;
 
 constexpr int CHUNK_THREADS = 1024;  // one block walks a merge group
 constexpr int PAIRS_PER_THREAD = CHUNK / CHUNK_THREADS;
-constexpr int MERGE_THREADS = 256;
+constexpr int MERGE_THREADS = 256;  // the broadcast
+constexpr int SUM_THREADS = 256;
+constexpr int SUM_TILE = 4096;  // CSR entries a block stages at once
+constexpr int SUM_PER = SUM_TILE / SUM_THREADS;
+constexpr int SUM_CHAINS = 4;  // chains a thread at most: 2D, 256 endpoints a block
 
 // ---------------------------------------------------------------------------
 // strata_chunks_2d: the chunk phase of _make_kernel_2d for one merge group.
@@ -44,24 +47,18 @@ constexpr int MERGE_THREADS = 256;
 // does about it: one read phase issues every load of a chunk at once (the
 // coins come from a hash, so no load waits on another), the A adds reuse
 // the drift read in that phase instead of reading it again, and the next
-// chunk's (o, D) is fetched while the current one runs.  Conflict levels of
-// window-disjoint chunks, one block per chunk, are the next step.
+// chunk's (o, D) is fetched while the current one runs.  The main path runs
+// strata_chunks_2d_levels (strata_levels.cu) instead, which spreads the
+// same chunks over every SM by conflict levels; this kernel stays as the
+// chain it is held against.
 //
-// Semantics (the twin's _twin_chunks_2d): per chunk, every pair reads
-// base+drift at both slots first; then all A adds; then all B adds.  A
-// slots are distinct within a chunk, and so are B slots; A and B windows
-// overlap when D < CHUNK, and the barriers order them as the twin does.  No
-// atomics, deterministic.
+// Semantics: strata::chunk_2d (strata_common.cuh), chunk after chunk.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(CHUNK_THREADS, 1)
 strata_chunks_2d_kernel(float* drift, const float* __restrict__ base,
                         const int* __restrict__ planes, long long L,
                         const int* __restrict__ od, const float* __restrict__ eta,
                         int cpi, int g0, int cgs) {
-  const int tid = threadIdx.x;
-  const int* pos0 = planes;          // pos
-  const int* pos1 = planes + L;      // pos_end
-  const int* path = planes + 3 * L;  // path id, -1 past the last step
   int o_next = od[2 * g0];
   int d_next = od[2 * g0 + 1];
   for (int c = 0; c < cgs; ++c) {
@@ -72,62 +69,8 @@ strata_chunks_2d_kernel(float* drift, const float* __restrict__ base,
       o_next = od[2 * (gl + 1)];
       d_next = od[2 * (gl + 1) + 1];
     }
-    const float lr = eta[gl / cpi];
-    const uint32_t gch = (uint32_t)gl * 1000003u;
-
-    long long xa_i[PAIRS_PER_THREAD], xb_i[PAIRS_PER_THREAD];
-    float dxa_old[PAIRS_PER_THREAD], dya_old[PAIRS_PER_THREAD];
-    float rx[PAIRS_PER_THREAD], ry[PAIRS_PER_THREAD];
-#pragma unroll
-    for (int k = 0; k < PAIRS_PER_THREAD; ++k) {
-      const int i = tid + k * CHUNK_THREADS;
-      const long long a = o + i;
-      const long long b = a + D;
-      const bool caf = (coin_hash((uint32_t)i, 0u, gch) & 1u) == 0u;
-      const bool cbf = (coin_hash((uint32_t)i, 1u, gch) & 1u) == 0u;
-      // replica planes [xf, xr, yf, yr]: x plane q, y plane q + 2
-      const long long qa = caf ? 0 : 1;
-      const long long qb = cbf ? 0 : 1;
-      const int pa = caf ? pos0[a] : pos1[a];
-      const int pb = cbf ? pos0[b] : pos1[b];
-      const int path_a = path[a];
-      const bool valid = (path_a == path[b]) && (path_a >= 0);
-      const long long ixa = qa * L + a, iya = (qa + 2) * L + a;
-      const long long ixb = qb * L + b, iyb = (qb + 2) * L + b;
-      const float dxa = drift[ixa], dya = drift[iya];
-      const float xa = base[ixa] + dxa;
-      const float ya = base[iya] + dya;
-      const float xb = base[ixb] + drift[ixb];
-      const float yb = base[iyb] + drift[iyb];
-
-      const float term = fmaxf((float)abs(pa - pb), 1e-9f);
-      const float mu = fminf(lr / term, 1.0f);
-      float dx = xa - xb;
-      if (dx == 0.0f) dx = 1e-9f;
-      const float dy = ya - yb;
-      const float mag = sqrtf(dx * dx + dy * dy);
-      const float delta = mu * (mag - term) * 0.5f;
-      const float r = valid ? delta / mag : 0.0f;
-      xa_i[k] = ixa;
-      xb_i[k] = ixb;
-      dxa_old[k] = dxa;
-      dya_old[k] = dya;
-      rx[k] = r * dx;
-      ry[k] = r * dy;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < PAIRS_PER_THREAD; ++k) {  // A adds
-      drift[xa_i[k]] = dxa_old[k] + (-rx[k]);
-      drift[xa_i[k] + 2 * L] = dya_old[k] + (-ry[k]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < PAIRS_PER_THREAD; ++k) {  // B adds, after the A adds
-      drift[xb_i[k]] = drift[xb_i[k]] + rx[k];
-      drift[xb_i[k] + 2 * L] = drift[xb_i[k] + 2 * L] + ry[k];
-    }
-    __syncthreads();
+    strata::chunk_2d<CHUNK_THREADS>(drift, base, planes, L, o, D, eta[gl / cpi], gl);
+    __syncthreads();  // the next chunk reads what this one wrote
   }
 }
 
@@ -193,52 +136,124 @@ strata_chunks_1d_kernel(float* drift, const float* __restrict__ base,
 }
 
 // ---------------------------------------------------------------------------
-// strata_merge_sum<NC>: the sum half of _merge_tiles_2d (NC = 2) and
-// _merge_tiles_1d (NC = 1).
+// strata_merge_sum<NC>: the sum half of _merge_tiles_2d (NC = 2,
+// odgi_tpu/ops/pallas_sgd.py:922) and _merge_tiles_1d (NC = 1, :1029).
 //
-// One thread per endpoint e sums in f64, in ascending slot order (the order
-// of the twin's np.bincount), the drift of the slots listed for e in a
-// host-built CSR.  2D: channel c sums plane 2c over the slots whose forward
-// endpoint is e, then plane 2c+1 over the slots whose forward endpoint is
-// e^1 (their complement endpoint is e), and adds the two sums, as the twin's
+// Per endpoint e, an f64 sum in ascending slot order (the order of the
+// twin's np.bincount) of the drift of the slots listed for e in a host-built
+// CSR.  2D: channel c sums plane 2c over the slots whose forward endpoint is
+// e, then plane 2c+1 over the slots whose forward endpoint is e^1 (their
+// complement endpoint is e), and adds the two sums, as the twin's
 // bincount(epf, dv[2c]) + bincount(epr, dv[2c+1]).  upd = acc * (1/R) is
 // stored for the broadcast and added into the f64 node coordinates.
 //
-// Bound on this card: bytes (each slot's drift read once through a gathered
-// index, the CSR, and the node coordinates), far under a millisecond at the
-// main path's size; the gather is random, so the real cost is the latency
-// of the longest list.  No atomics: the sum is deterministic and matches
-// the twin bit for bit.
+// Bound on this card: the random gathers and the ordered folds.  The bytes
+// bound is 0.004-0.030 ms a launch on the main path's graphs (each slot's
+// drift, the CSR and the node arrays once); every element is a
+// csr_slot[k] -> drift[...] dependent pair, and each sum is one chain of
+// dependent f64 adds as long as its list (75-500 on the smoke and XL
+// graphs).  A thread an endpoint walking its list one gather after the
+// other left 10,000-20,000 threads waiting on memory.  What the design does
+// about it: a thread block owns B consecutive endpoints (B a power of two
+// up to 256, chosen on the host from the mean list length,
+// MergeIndex.block_eps, so that their lists fill at most one tile).  Their lists are contiguous in the
+// CSR, so the block loads the CSR span with coalesced loads, issues every
+// gather of a tile at once (16 a thread, independent), and stages the
+// drift of every plane in shared memory in CSR order.  Then one thread a
+// (endpoint, plane) chain folds its slice of the tile in ascending order
+// into its f64 sum: 2D runs four chains an endpoint (planes 0 and 2 over
+// the endpoint's own list, 1 and 3 over the list of e^1, inside the block
+// since B is even), spread over the threads (up to four a thread when B is
+// 256), and the sums meet in shared memory as (fwd + rev) * (1/R).  A list longer than a tile continues in the next
+// tile on the same thread.  No tree reduction and no atomics: the sums are
+// bit-equal to np.bincount's.
 // ---------------------------------------------------------------------------
 template <int NC>
-__global__ void strata_merge_sum_kernel(const float* __restrict__ drift, long long L,
-                                        const int* __restrict__ csr_off,
-                                        const int* __restrict__ csr_slot,
-                                        const double* __restrict__ recip,
-                                        double* __restrict__ coords,
-                                        double* __restrict__ upd, int E, int ecap) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  const int f0 = csr_off[e], f1 = csr_off[e + 1];
-  if (NC == 1) {
-    double acc = 0.0;
-    for (int k = f0; k < f1; ++k) acc += (double)drift[csr_slot[k]];
-    const double u = acc * recip[e];
+__host__ __device__ constexpr int sum_planes() { return NC == 1 ? 1 : 4; }
+
+template <int NC>
+size_t sum_smem_bytes(int block_eps) {
+  return (size_t)sum_planes<NC>() * SUM_TILE * sizeof(float) +
+         (NC == 2 ? (size_t)4 * block_eps * sizeof(double) : 0);
+}
+
+template <int NC>
+__global__ void __launch_bounds__(SUM_THREADS)
+strata_merge_sum_kernel(const float* __restrict__ drift, long long L,
+                        const int* __restrict__ csr_off, const int* __restrict__ csr_slot,
+                        const double* __restrict__ recip, double* __restrict__ coords,
+                        double* __restrict__ upd, int E, int ecap, int B) {
+  constexpr int NP = sum_planes<NC>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* tile = reinterpret_cast<float*>(smem);                   // [NP][SUM_TILE]
+  double* part = reinterpret_cast<double*>(tile + NP * SUM_TILE);  // 2D: [4][B]
+  const long long e0 = (long long)blockIdx.x * B;
+  const int ne = (int)min((long long)B, (long long)E - e0);
+  const int k0 = csr_off[e0], k1 = csr_off[e0 + ne];
+  const int tid = threadIdx.x;
+  // chain c = tid + r * SUM_THREADS: plane c / B of endpoint e0 + c % B; 2D
+  // planes 1 and 3 run over the list of (e0 + c % B) ^ 1
+  int f0[SUM_CHAINS], f1[SUM_CHAINS];
+  double acc[SUM_CHAINS];
+#pragma unroll
+  for (int r = 0; r < SUM_CHAINS; ++r) {
+    const int c = tid + r * SUM_THREADS, q = c / B, i = c - q * B;
+    f0[r] = f1[r] = 0;
+    acc[r] = 0.0;
+    if (q < NP && i < ne) {
+      const long long owner = (NC == 2 && (q & 1)) ? ((e0 + i) ^ 1) : e0 + i;
+      f0[r] = csr_off[owner];
+      f1[r] = csr_off[owner + 1];
+    }
+  }
+  for (int t0 = k0; t0 < k1; t0 += SUM_TILE) {
+    const int t1 = min(t0 + SUM_TILE, k1);
+    int sl[SUM_PER];  // the tile's slots, coalesced
+#pragma unroll
+    for (int r = 0; r < SUM_PER; ++r) {
+      const int k = t0 + tid + r * SUM_THREADS;
+      sl[r] = k < t1 ? csr_slot[k] : -1;
+    }
+    float v[NP][SUM_PER];  // every gather of the tile in flight at once
+#pragma unroll
+    for (int r = 0; r < SUM_PER; ++r)
+#pragma unroll
+      for (int p = 0; p < NP; ++p) v[p][r] = sl[r] >= 0 ? drift[p * L + sl[r]] : 0.0f;
+    __syncthreads();  // the previous tile is folded
+#pragma unroll
+    for (int r = 0; r < SUM_PER; ++r)
+#pragma unroll
+      for (int p = 0; p < NP; ++p) tile[p * SUM_TILE + tid + r * SUM_THREADS] = v[p][r];
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < SUM_CHAINS; ++r) {  // ascending order, one add after the other
+      const float* x = tile + ((tid + r * SUM_THREADS) / B) * SUM_TILE;
+      const int hi = min(f1[r], t1) - t0;
+      for (int s = max(f0[r], t0) - t0; s < hi; ++s) acc[r] += (double)x[s];
+    }
+  }
+  if (NC == 1) {  // B <= SUM_THREADS: one chain a thread
+    if (tid >= ne) return;
+    const long long e = e0 + tid;
+    const double u = acc[0] * recip[e];
     upd[e] = u;
     coords[e] = coords[e] + u;
   } else {
-    const int r0 = csr_off[e ^ 1], r1 = csr_off[(e ^ 1) + 1];
 #pragma unroll
-    for (int ch = 0; ch < NC; ++ch) {
-      const float* fwd = drift + (2 * ch) * L;
-      const float* rev = drift + (2 * ch + 1) * L;
-      double af = 0.0, ar = 0.0;
-      for (int k = f0; k < f1; ++k) af += (double)fwd[csr_slot[k]];
-      for (int k = r0; k < r1; ++k) ar += (double)rev[csr_slot[k]];
-      const double u = (af + ar) * recip[e];
-      upd[ch * ecap + e] = u;
-      coords[ch * E + e] = coords[ch * E + e] + u;
+    for (int r = 0; r < SUM_CHAINS; ++r) {
+      const int c = tid + r * SUM_THREADS;
+      if (c < NP * B && c % B < ne) part[c] = acc[r];
     }
+    __syncthreads();
+    if (tid >= ne) return;
+    const long long e = e0 + tid;
+    const double rc = recip[e];
+    const double ux = (part[tid] + part[B + tid]) * rc;          // x: fwd + rev
+    const double uy = (part[2 * B + tid] + part[3 * B + tid]) * rc;  // y: fwd + rev
+    upd[e] = ux;
+    upd[ecap + e] = uy;
+    coords[e] = coords[e] + ux;
+    coords[E + e] = coords[E + e] + uy;
   }
 }
 
@@ -272,6 +287,21 @@ __global__ void strata_merge_bcast_kernel(float* __restrict__ drift, float* __re
   }
 }
 
+template <int NC>
+int launch_sum(const void* drift, long long L, const void* csr_off, const void* csr_slot,
+               const void* recip, void* coords, void* upd, int E, int ecap, int block_eps,
+               cudaStream_t stream) {
+  const size_t smem = sum_smem_bytes<NC>(block_eps);
+  const cudaError_t err = cudaFuncSetAttribute(
+      strata_merge_sum_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = ((long long)E + block_eps - 1) / block_eps;
+  strata_merge_sum_kernel<NC><<<(unsigned)blocks, SUM_THREADS, smem, stream>>>(
+      (const float*)drift, L, (const int*)csr_off, (const int*)csr_slot, (const double*)recip,
+      (double*)coords, (double*)upd, E, ecap, block_eps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -294,21 +324,20 @@ int strata_chunks_1d(void* drift, const void* base, const void* planes, long lon
   return (int)cudaGetLastError();
 }
 
+// block_eps: endpoints a thread block sums, a power of two in [1, 256]
+// (2D: even).
 int strata_merge_sum(const void* drift, long long L, const void* csr_off,
                      const void* csr_slot, const void* recip, void* coords, void* upd,
-                     int E, int ecap, int nc, void* stream) {
-  const int blocks = (E + MERGE_THREADS - 1) / MERGE_THREADS;
+                     int E, int ecap, int nc, int block_eps, void* stream) {
+  const int B = block_eps;
+  if (B < 1 || B > SUM_THREADS || (B & (B - 1)) != 0) return (int)cudaErrorInvalidValue;
   if (nc == 1)
-    strata_merge_sum_kernel<1><<<blocks, MERGE_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)drift, L, (const int*)csr_off, (const int*)csr_slot,
-        (const double*)recip, (double*)coords, (double*)upd, E, ecap);
-  else if (nc == 2)
-    strata_merge_sum_kernel<2><<<blocks, MERGE_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)drift, L, (const int*)csr_off, (const int*)csr_slot,
-        (const double*)recip, (double*)coords, (double*)upd, E, ecap);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch_sum<1>(drift, L, csr_off, csr_slot, recip, coords, upd, E, ecap, B,
+                         (cudaStream_t)stream);
+  if (nc == 2 && B >= 2)
+    return launch_sum<2>(drift, L, csr_off, csr_slot, recip, coords, upd, E, ecap, B,
+                         (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 int strata_merge_bcast(void* drift, void* base, long long L, const void* ep,

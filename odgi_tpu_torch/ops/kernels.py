@@ -19,8 +19,13 @@ strata_chunks_1d_stream             pallas_sgd_xl.py _run_chunks_1d (XL, XXL 1D)
 strata_merge_sum_blocked            pallas_sgd_xxl.py scatter pass
   (strata_blocked.cu)
 strata_merge_bcast_blocked          pallas_sgd_xxl.py broadcast + zeroing passes
+strata_chunks_2d_levels             pallas_sgd.py _chunk_2d and the 2D chunk
+  (strata_levels.cu)                  phases of _make_kernel_xl / _xxl
 The XL route's merge is strata_merge_sum / strata_merge_bcast, which have
 no node-width cap (the counterpart of XL's streamed full-width merge).
+The 2D chunk phase of every route is strata_chunks_2d_levels; the chain
+kernels strata_chunks_2d / _2d_stream compute the same drift and stay as
+its reference, off the main path.
 """
 
 from __future__ import annotations
@@ -51,12 +56,13 @@ _STREAM_ARGS = [P, P, P, LL, P, P, P, I, I, I, P]
 SIGNATURES = {
     "strata_chunks_2d": _CHUNK_ARGS,
     "strata_chunks_1d": _CHUNK_ARGS,
-    "strata_merge_sum": [P, LL, P, P, P, P, P, I, I, I, P],
+    "strata_merge_sum": [P, LL, P, P, P, P, P, I, I, I, I, P],
     "strata_merge_bcast": [P, P, LL, P, P, I, I, P],
     "strata_chunks_2d_stream": _STREAM_ARGS,
     "strata_chunks_1d_stream": _STREAM_ARGS,
     "strata_merge_sum_blocked": [P, LL, P, P, P, P, P, I, I, I, P, P, I, I, P],
     "strata_merge_bcast_blocked": [P, P, LL, P, P, I, I, I, P, P, I, I, LL, P],
+    "strata_chunks_2d_levels": [P, P, P, LL, P, P, I, P, P, I, P, P],
 }
 NAMES = tuple(SIGNATURES)
 # Shared memory a thread block may use on sm_90 (the blocked sum checks it).
@@ -143,6 +149,10 @@ def _fn(name: str):
                 lib.strata_merge_sum_blocked_smem.argtypes = [I, I]
                 lib.strata_merge_sum_blocked_smem.restype = LL
                 _fns["strata_merge_sum_blocked_smem"] = lib.strata_merge_sum_blocked_smem
+            if hasattr(lib, "strata_chunks_2d_levels_blocks"):
+                lib.strata_chunks_2d_levels_blocks.argtypes = []
+                lib.strata_chunks_2d_levels_blocks.restype = I
+                _fns["strata_chunks_2d_levels_blocks"] = lib.strata_chunks_2d_levels_blocks
     return _fns[name]
 
 
@@ -158,7 +168,7 @@ def _check(tensors: dict, device) -> None:
         "csr_off": torch.int32, "csr_slot": torch.int32,
         "recip": torch.float64, "coords": torch.float64, "upd": torch.float64,
         "sync": torch.int32, "tile": torch.int32, "block": torch.int32,
-        "blk_off": torch.int32,
+        "blk_off": torch.int32, "perm": torch.int32, "lvl_off": torch.int32,
     }
     for name, t in tensors.items():
         _require(t.device == device, f"{name} is on {t.device}, not {device}")
@@ -229,9 +239,12 @@ def strata_merge_sum(drift, mi, coords, upd):
     _require(drift.shape[0] == (4 if nc == 2 else 1), "drift planes")
     _require(upd.shape == (nc, mi.ecap) and mi.csr_off.shape == (E + 1,)
              and mi.recip.shape == (E,), "merge index shapes")
+    b = int(mi.block_eps)
+    _require(1 <= b <= strata_sgd.SUM_THREADS and b & (b - 1) == 0 and (nc == 1 or b >= 2),
+             "block_eps a power of two in [1, 256], even in 2D")
     err = _fn("strata_merge_sum")(
         _ptr(drift), L, _ptr(mi.csr_off), _ptr(mi.csr_slot), _ptr(mi.recip),
-        _ptr(coords), _ptr(upd), int(E), int(mi.ecap), int(nc),
+        _ptr(coords), _ptr(upd), int(E), int(mi.ecap), int(nc), b,
         _stream(drift.device))
     _launched("strata_merge_sum", err)
 
@@ -258,6 +271,46 @@ def strata_chunks_2d_stream(drift, base, planes, od, sync, eta, cpi: int, g0: in
     if drift.device.type == "cpu":
         return strata_sgd.chunks_2d_plain(drift, base, planes, od, eta, cpi, g0, cgs)
     _chunks("strata_chunks_2d_stream", 4, drift, base, planes, od, eta, cpi, g0, cgs, sync)
+
+
+# One scratch word a device: the grid barrier's counter of the leveled
+# kernel.  It starts at 0 and every completed launch leaves its low 31 bits
+# at 0, so launches on one stream share it.
+_BARRIER: dict = {}
+
+
+def strata_chunks_2d_levels(drift, base, planes, od, eta, cpi: int, perm, lvl_off):
+    """Chunk phase of one 2D merge group by conflict levels, in place on
+    `drift`: level l runs the chunks perm[lvl_off[l]:lvl_off[l+1]] at once
+    (``ops/strata_levels.py``), the levels in order.  perm (chunks,) i32
+    holds every chunk of the run; lvl_off (levels + 1,) i32 is the group's
+    row of offsets into it.  Same result as `strata_chunks_2d`."""
+    if drift.device.type == "cpu":
+        return strata_sgd.chunks_2d_levels_plain(drift, base, planes, od, eta, cpi, perm,
+                                                 lvl_off)
+    _check(dict(drift=drift, base=base, planes=planes, od=od, eta=eta, perm=perm,
+                lvl_off=lvl_off), drift.device)
+    L = drift.shape[1]
+    _require(drift.shape == base.shape and drift.shape[0] == 4, "drift/base shape")
+    _require(planes.shape == (4, L), "planes shape")
+    _require(od.dim() == 2 and od.shape[1] == 2, "od shape")
+    _require(perm.shape == (od.shape[0],), "perm has one entry a chunk")
+    _require(lvl_off.dim() == 1 and 2 <= lvl_off.shape[0] <= od.shape[0] + 1,
+             "lvl_off holds 1 to chunks levels")
+    _require(cpi > 0 and (od.shape[0] - 1) // cpi < eta.shape[0], "eta covers the chunks")
+    counter = _BARRIER.get(drift.device)
+    if counter is None:
+        counter = _BARRIER[drift.device] = torch.zeros(1, dtype=torch.int32,
+                                                       device=drift.device)
+    err = _fn("strata_chunks_2d_levels")(
+        _ptr(drift), _ptr(base), _ptr(planes), L, _ptr(od), _ptr(eta), int(cpi), _ptr(perm),
+        _ptr(lvl_off), int(lvl_off.shape[0] - 1), _ptr(counter), _stream(drift.device))
+    _launched("strata_chunks_2d_levels", err)
+
+
+def levels_grid_blocks() -> int:
+    """Blocks of the leveled kernel's persistent grid on the current card."""
+    return int(_fn("strata_chunks_2d_levels_blocks")())
 
 
 def strata_chunks_1d_stream(drift, base, planes, od, sync, eta, cpi: int, g0: int, cgs: int):

@@ -23,6 +23,9 @@ the same function, bit for bit:
   (``ops/strata_xxl.py``), the stream chunk kernels, and the blocked merges
   that walk the (block, tile) schedule; coordinates are relabeled back at
   the end.
+On every route the 2D chunk phase runs by conflict levels
+(``ops/strata_levels.py``, ``strata_chunks_2d_levels``), which gives the
+chain kernels' drift bit for bit; they stay as its reference.
 
 Each phase has a plain PyTorch version here and a CUDA kernel behind the
 wrappers of ``ops/kernels.py``; the runs call the wrappers, which take
@@ -37,7 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import kernels
+from . import kernels, strata_levels
 from .strata_plan import CHUNK, LANE, P1_PATH, P1_POS, PATH, POS, POSEND, plan_run
 from .strata_route import ROUTES, graph_route
 from .strata_xl import sync_flags
@@ -87,6 +90,46 @@ def chunk_coins(gl: int, device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _chunk_2d(drift, base, planes, o: int, D: int, lr, gl: int) -> None:
+    """One 2D chunk, global index `gl` (its coins and eta row), window start
+    slot `o` and jump `D`, in place on `drift`: every pair reads both
+    windows, then the A adds, then the B adds."""
+    pos0, pos1, path = planes[POS], planes[POSEND], planes[PATH]
+    A = slice(o, o + CHUNK)
+    B = slice(o + D, o + D + CHUNK)
+    coins = chunk_coins(gl, drift.device)
+    caf = (coins[0] & 1) == 0
+    cbf = (coins[1] & 1) == 0
+    a = base[:, A] + drift[:, A]
+    b = base[:, B] + drift[:, B]
+    pos_a = torch.where(caf, pos0[A], pos1[A])
+    pos_b = torch.where(cbf, pos0[B], pos1[B])
+    xa = torch.where(caf, a[0], a[1])
+    ya = torch.where(caf, a[2], a[3])
+    xb = torch.where(cbf, b[0], b[1])
+    yb = torch.where(cbf, b[2], b[3])
+    valid = (path[A] == path[B]) & (path[A] >= 0)
+    term = torch.clamp_min((pos_a - pos_b).abs().to(torch.float32), 1e-9)
+    mu = torch.clamp_max(lr / term, 1.0)
+    dx = xa - xb
+    dx = torch.where(dx == 0.0, 1e-9, dx)
+    dy = ya - yb
+    mag = torch.sqrt(dx * dx + dy * dy)
+    delta = mu * (mag - term) * 0.5
+    r = torch.where(valid, delta / mag, 0.0)
+    rx = r * dx
+    ry = r * dy
+    zero = torch.zeros_like(rx)
+    drift[:, A] += torch.stack([
+        torch.where(caf, -rx, zero), torch.where(caf, zero, -rx),
+        torch.where(caf, -ry, zero), torch.where(caf, zero, -ry),
+    ])
+    drift[:, B] += torch.stack([
+        torch.where(cbf, rx, zero), torch.where(cbf, zero, rx),
+        torch.where(cbf, ry, zero), torch.where(cbf, zero, ry),
+    ])
+
+
 def chunks_2d_plain(drift, base, planes, od, eta, cpi: int, g0: int, cgs: int):
     """Chunks g0..g0+cgs-1 of the 2D scheme, in place on `drift` (4, L) f32.
 
@@ -94,45 +137,20 @@ def chunks_2d_plain(drift, base, planes, od, eta, cpi: int, g0: int, cgs: int):
     handle, path]; od (chunks, 2) i32 [window block, D]; eta (iter_max,)
     f32, indexed by gl // cpi."""
     od_h = od.cpu().numpy()
-    pos0, pos1, path = planes[POS], planes[POSEND], planes[PATH]
-    for c in range(cgs):
-        gl = g0 + c
-        o = int(od_h[gl, 0]) * LANE
-        D = int(od_h[gl, 1])
-        A = slice(o, o + CHUNK)
-        B = slice(o + D, o + D + CHUNK)
-        lr = eta[gl // cpi]
-        coins = chunk_coins(gl, drift.device)
-        caf = (coins[0] & 1) == 0
-        cbf = (coins[1] & 1) == 0
-        a = base[:, A] + drift[:, A]
-        b = base[:, B] + drift[:, B]
-        pos_a = torch.where(caf, pos0[A], pos1[A])
-        pos_b = torch.where(cbf, pos0[B], pos1[B])
-        xa = torch.where(caf, a[0], a[1])
-        ya = torch.where(caf, a[2], a[3])
-        xb = torch.where(cbf, b[0], b[1])
-        yb = torch.where(cbf, b[2], b[3])
-        valid = (path[A] == path[B]) & (path[A] >= 0)
-        term = torch.clamp_min((pos_a - pos_b).abs().to(torch.float32), 1e-9)
-        mu = torch.clamp_max(lr / term, 1.0)
-        dx = xa - xb
-        dx = torch.where(dx == 0.0, 1e-9, dx)
-        dy = ya - yb
-        mag = torch.sqrt(dx * dx + dy * dy)
-        delta = mu * (mag - term) * 0.5
-        r = torch.where(valid, delta / mag, 0.0)
-        rx = r * dx
-        ry = r * dy
-        zero = torch.zeros_like(rx)
-        drift[:, A] += torch.stack([
-            torch.where(caf, -rx, zero), torch.where(caf, zero, -rx),
-            torch.where(caf, -ry, zero), torch.where(caf, zero, -ry),
-        ])
-        drift[:, B] += torch.stack([
-            torch.where(cbf, rx, zero), torch.where(cbf, zero, rx),
-            torch.where(cbf, ry, zero), torch.where(cbf, zero, ry),
-        ])
+    for gl in range(g0, g0 + cgs):
+        _chunk_2d(drift, base, planes, int(od_h[gl, 0]) * LANE, int(od_h[gl, 1]),
+                  eta[gl // cpi], gl)
+
+
+def chunks_2d_levels_plain(drift, base, planes, od, eta, cpi: int, perm, lvl_off):
+    """The chunks perm[lvl_off[0]:lvl_off[-1]] in that order, in place on
+    `drift` (`ops/strata_levels.py`: one group's levels, each level's chunks
+    slot-disjoint); the same per-chunk body as `chunks_2d_plain`."""
+    od_h = od.cpu().numpy()
+    off = lvl_off.cpu().numpy()
+    for gl in perm[int(off[0]):int(off[-1])].cpu().tolist():
+        _chunk_2d(drift, base, planes, int(od_h[gl, 0]) * LANE, int(od_h[gl, 1]),
+                  eta[gl // cpi], gl)
 
 
 def chunks_1d_plain(drift, base, planes, od, eta, cpi: int, g0: int, cgs: int):
@@ -184,6 +202,36 @@ def merge_sum_plain(drift, mi: "MergeIndex", coords, upd):
             acc_r.index_add_(0, mi.ep ^ 1, dv[2 * ch + 1])
             acc += acc_r
         u = acc[:E] * mi.recip
+        upd[ch, :E] = u
+        coords[ch] += u
+
+
+def _ordered_sums(plane, mi: "MergeIndex", owner):
+    """f64 sum of `plane` over the CSR list of endpoint owner[e], for every
+    e, one list position after the other: each sum runs over its slots in
+    ascending order, as np.bincount and `strata_merge_sum` add them."""
+    off = mi.csr_off.to(torch.int64)
+    start, n = off[owner], (off[1:] - off[:-1])[owner]
+    last = max(int(mi.csr_slot.shape[0]) - 1, 0)
+    acc = torch.zeros(owner.shape[0], dtype=torch.float64, device=plane.device)
+    for k in range(int(n.max()) if n.numel() else 0):
+        slot = mi.csr_slot[torch.clamp(start + k, max=last)].to(torch.int64)
+        acc = torch.where(n > k, acc + plane[slot].to(torch.float64), acc)
+    return acc
+
+
+def merge_sum_ordered_plain(drift, mi: "MergeIndex", coords, upd):
+    """`merge_sum_plain` with every sum in ascending slot order (a loop over
+    the CSR): the exact reference of `strata_merge_sum`'s order, for the
+    tests and the card checks, never on the main path."""
+    nc, E = coords.shape
+    e = torch.arange(E, device=drift.device)
+    for ch in range(nc):
+        if nc == 1:
+            acc = _ordered_sums(drift[0], mi, e)
+        else:
+            acc = _ordered_sums(drift[2 * ch], mi, e) + _ordered_sums(drift[2 * ch + 1], mi, e ^ 1)
+        u = acc * mi.recip
         upd[ch, :E] = u
         coords[ch] += u
 
@@ -269,6 +317,8 @@ class MergeIndex:
         slots s with ep[s] == endpoint (the kernel's summation order,
         which is np.bincount's).
     recip: f64 (E,) 1/R per endpoint (0 for step-less nodes).
+    block_eps: the endpoints one thread block of `strata_merge_sum` sums
+        (`merge_block_eps`).
     """
 
     ep: torch.Tensor
@@ -276,6 +326,7 @@ class MergeIndex:
     csr_slot: torch.Tensor
     recip: torch.Tensor
     ecap: int
+    block_eps: int
 
     @staticmethod
     def build(g, num_slots: int, one_d: bool, device) -> "MergeIndex":
@@ -300,7 +351,24 @@ class MergeIndex:
             csr_slot=t(order, torch.int32),
             recip=t(recip, torch.float64),
             ecap=E + (1 if one_d else 2),
+            block_eps=merge_block_eps(off),
         )
+
+
+SUM_TILE = 4096  # CSR entries a thread block of strata_merge_sum stages at once
+SUM_THREADS = 256
+
+
+def merge_block_eps(csr_off: np.ndarray) -> int:
+    """Endpoints one thread block of `strata_merge_sum` sums: the largest
+    power of two whose lists, at the mean list length, fill at most one
+    staged tile of SUM_TILE CSR entries, in [2, SUM_THREADS]."""
+    off = np.asarray(csr_off, np.int64)
+    mean = float(off[-1] - off[0]) / max(len(off) - 1, 1)
+    b = 2
+    while b * 2 <= SUM_THREADS and b * 2 * mean <= SUM_TILE:
+        b *= 2
+    return b
 
 
 @dataclass
@@ -322,6 +390,8 @@ class StrataState:
     upd: torch.Tensor      # f64 (2 or 1, E_cap) last merge's update
     route: str = "resident"
     sync: Optional[torch.Tensor] = None   # i32 (chunks,) "xl", "xxl"
+    perm: Optional[torch.Tensor] = None   # i32 (chunks,) 2D: chunks by level
+    lvl_rows: Optional[list] = None       # 2D: each group's i32 level offsets
     bsch: Optional[BlockSchedule] = None  # "xxl"
     order: Optional[np.ndarray] = None    # "xxl": relabel order
 
@@ -362,6 +432,11 @@ class StrataState:
         od = np.stack([p["o_blk"], p["d_arr"]], axis=1).astype(np.int32)
         t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
         base_t = t(base, torch.float32)
+        perm = lvl_rows = None
+        if not one_d:
+            perm_h, lvl_off = strata_levels.chunk_levels(p)
+            perm, off_t = t(perm_h, torch.int32), t(lvl_off, torch.int32)
+            lvl_rows = [off_t[gid, :n + 1] for gid, n in enumerate(strata_levels.depths(lvl_off))]
         return StrataState(
             plan=p,
             one_d=one_d,
@@ -375,22 +450,26 @@ class StrataState:
             upd=torch.zeros((coords.shape[0], mi.ecap), dtype=torch.float64, device=device),
             route=route,
             sync=None if route == "resident" else t(sync_flags(p), torch.int32),
+            perm=perm,
+            lvl_rows=lvl_rows,
             bsch=BlockSchedule.build(g, one_d, device) if route == "xxl" else None,
             order=order,
         )
 
     def run_group(self, gid: int) -> None:
-        """One merge group: the chunk phase, then the consensus merge."""
+        """One merge group: the chunk phase, then the consensus merge.  2D
+        runs its chunks by conflict levels on every route; 1D runs the
+        route's chain kernel."""
         p = self.plan
         args = (self.drift, self.base, self.planes, self.od)
         tail = (self.eta, p["cpi"], gid * p["cgs"], p["cgs"])
-        if self.route == "resident":
-            chunks = kernels.strata_chunks_1d if self.one_d else kernels.strata_chunks_2d
-            chunks(*args, *tail)
+        if not self.one_d:
+            kernels.strata_chunks_2d_levels(*args, self.eta, p["cpi"], self.perm,
+                                            self.lvl_rows[gid])
+        elif self.route == "resident":
+            kernels.strata_chunks_1d(*args, *tail)
         else:
-            chunks = (kernels.strata_chunks_1d_stream if self.one_d
-                      else kernels.strata_chunks_2d_stream)
-            chunks(*args, self.sync, *tail)
+            kernels.strata_chunks_1d_stream(*args, self.sync, *tail)
         if self.route == "xxl":
             kernels.strata_merge_sum_blocked(self.drift, self.mi, self.bsch,
                                              self.coords, self.upd)

@@ -8,7 +8,9 @@ and division, so they round as the plain versions do; max |drift delta|
 over the scale <= 1e-6 (bit-equality expected).  The merge sums are f64 in
 ascending slot order, while the plain version's CUDA index_add_ adds in no
 fixed order: <= 1e-12 of the scale.  The stream and blocked kernels of the
-XL and XXL routes equal the resident kernels exactly.
+XL and XXL routes equal the resident kernels exactly.  The leveled 2D chunk
+kernel equals the chain kernels exactly, and strata_merge_sum equals the
+ascending-order loop merge_sum_ordered_plain exactly, at every block size.
 """
 
 import dataclasses
@@ -19,7 +21,7 @@ import torch
 
 from odgi_tpu_torch.algorithms.layout import init_layout
 from odgi_tpu_torch.core.graph import GraphBuilder
-from odgi_tpu_torch.ops import kernels, sgd, strata_sgd, strata_xl, strata_xxl
+from odgi_tpu_torch.ops import kernels, sgd, strata_levels, strata_sgd, strata_xl, strata_xxl
 
 pytestmark = pytest.mark.cuda
 
@@ -256,7 +258,7 @@ def test_routes_equal_on_card(cuda, wide_graph, one_d, monkeypatch):
         np.testing.assert_array_equal(run(route, cuda), res)
     on_cpu = run("resident", "cpu")
     assert np.abs(res - on_cpu).max() / (np.abs(on_cpu).max() + 1) <= CHUNK_TOL
-    for n in ("strata_chunks_1d_stream" if one_d else "strata_chunks_2d_stream",
+    for n in ("strata_chunks_1d_stream" if one_d else "strata_chunks_2d_levels",
               "strata_merge_sum_blocked", "strata_merge_bcast_blocked"):
         assert kernels.LAUNCHES[n] > before[n]
 
@@ -286,3 +288,96 @@ def test_new_wrappers_reject_bad_arguments(cuda, wide_graph):
     with pytest.raises(ValueError):
         kernels.strata_merge_bcast_blocked(st.drift, st.base[:1].contiguous(), st.mi, bs,
                                            st.upd)
+
+
+def _level_state(graph, device, route):
+    """A 2D state with a few hundred chunks a group, so that levels hold
+    several chunks each."""
+    cfg = sgd.derive_config_2d(graph, iter_max=2, min_term_updates=256 * 4096)
+    return strata_sgd.StrataState.build(graph, cfg, init_layout(graph), False, device, route)
+
+
+@pytest.mark.parametrize("route", ["resident", "xl", "xxl"])
+def test_leveled_chunks_equal_chain_groups(cuda, long_graph, route):
+    st = _level_state(long_graph, cuda, route)
+    p = st.plan
+    depth = strata_levels.depths(strata_levels.chunk_levels(p)[1])
+    assert depth.max() < p["cgs"]  # levels of more than one chunk
+    before = dict(kernels.LAUNCHES)
+    for gid in range(p["groups"]):
+        tail = (st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
+        d_l, d_c, d_s = st.drift.clone(), st.drift.clone(), st.drift.clone()
+        kernels.strata_chunks_2d_levels(d_l, st.base, st.planes, st.od, st.eta, p["cpi"],
+                                        st.perm, st.lvl_rows[gid])
+        kernels.strata_chunks_2d(d_c, st.base, st.planes, st.od, *tail)
+        if st.sync is not None:
+            kernels.strata_chunks_2d_stream(d_s, st.base, st.planes, st.od, st.sync, *tail)
+            torch.cuda.synchronize()
+            assert torch.equal(d_s, d_c)
+        torch.cuda.synchronize()
+        assert torch.equal(d_l, d_c)
+        assert float(d_c.abs().max()) > 0
+        st.drift = d_l
+        kernels.strata_merge_sum(st.drift, st.mi, st.coords, st.upd)
+        kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)
+    assert kernels.LAUNCHES["strata_chunks_2d_levels"] - before["strata_chunks_2d_levels"] \
+        == p["groups"]
+
+
+@pytest.mark.parametrize("route", ["resident", "xl", "xxl"])
+def test_leveled_runs_equal_chain_runs(cuda, long_graph, route, monkeypatch):
+    """Whole 2D runs: the leveled kernel against the same run with the
+    chunk phase forced onto the chain kernel, bit for bit."""
+    cfg = sgd.derive_config_2d(long_graph, iter_max=3, min_term_updates=128 * 4096)
+    c0 = init_layout(long_graph)
+    run = lambda: strata_sgd.path_sgd_2d_strata(long_graph, c0, cfg, cuda, route).cpu().numpy()
+    leveled = run()
+
+    def chain(drift, base, planes, od, eta, cpi, perm, lvl_off):
+        # the group's chunks are the range perm[lvl_off[0]:lvl_off[-1]] covers
+        g0, g1 = int(lvl_off[0]), int(lvl_off[-1])
+        kernels.strata_chunks_2d(drift, base, planes, od, eta, cpi, g0, g1 - g0)
+
+    monkeypatch.setattr(kernels, "strata_chunks_2d_levels", chain)
+    np.testing.assert_array_equal(run(), leveled)
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+@pytest.mark.parametrize("block_eps", [2, 16, 256])
+def test_merge_sum_blocks_equal_ordered_and_blocked(cuda, wide_graph, one_d, block_eps):
+    st = _state(wide_graph, one_d, cuda, "xxl")
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    S = st.bsch.num_steps
+    st.drift[:, :S] = torch.randn(st.drift[:, :S].shape, generator=gen, device=cuda) * 50
+    mi = dataclasses.replace(st.mi, block_eps=block_eps)
+    c_k, u_k, c_o, u_o, c_b, u_b = (t.clone() for t in (st.coords, st.upd) * 3)
+    kernels.strata_merge_sum(st.drift, mi, c_k, u_k)
+    strata_sgd.merge_sum_ordered_plain(st.drift, mi, c_o, u_o)
+    kernels.strata_merge_sum_blocked(st.drift, mi, st.bsch, c_b, u_b)
+    torch.cuda.synchronize()
+    assert torch.equal(c_k, c_o) and torch.equal(u_k, u_o)
+    assert torch.equal(c_k, c_b) and torch.equal(u_k, u_b)
+    assert float(u_k.abs().max()) > 0
+
+
+def test_levels_wrapper_rejects_bad_arguments(cuda, long_graph):
+    st = _level_state(long_graph, cuda, "resident")
+    p = st.plan
+    row = st.lvl_rows[0]
+    args = (st.drift, st.base, st.planes, st.od, st.eta, p["cpi"])
+    for bad_perm in (st.perm.cpu(), st.perm.long(), st.perm[:-1], st.perm[::2]):
+        with pytest.raises(ValueError):
+            kernels.strata_chunks_2d_levels(*args, bad_perm, row)
+    for bad_off in (row.cpu(), row.long(), row[:1], row[None, :].expand(2, -1)):
+        with pytest.raises(ValueError):
+            kernels.strata_chunks_2d_levels(*args, st.perm, bad_off)
+    with pytest.raises(ValueError):
+        kernels.strata_chunks_2d_levels(st.drift, st.base, st.planes, st.od, st.eta[:1],
+                                        p["cpi"] // 2, st.perm, row)
+    with pytest.raises(ValueError):
+        kernels.strata_merge_sum(st.drift, dataclasses.replace(st.mi, block_eps=3), st.coords,
+                                 st.upd)
+    for bad in (1, 512):  # 2D pairs e, e^1 in one block; at most 256 endpoints
+        with pytest.raises(ValueError):
+            kernels.strata_merge_sum(st.drift, dataclasses.replace(st.mi, block_eps=bad),
+                                     st.coords, st.upd)

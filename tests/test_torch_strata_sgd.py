@@ -88,9 +88,11 @@ def test_strata_1d_from_x0(graphs):
     assert _rel_err(port, twin) <= SHORT_TOL
 
 
-def test_merge_plain_matches_bincount(graphs):
-    """The plain merge (f64 index_add_) equals the twin's np.bincount sums
-    exactly on random drift, and the broadcast resets the drift."""
+@pytest.mark.parametrize("merge", ["merge_sum_plain", "merge_sum_ordered_plain"])
+def test_merge_plain_matches_bincount(graphs, merge):
+    """The plain merges (f64 index_add_, and the ascending loop over the
+    CSR) equal the twin's np.bincount sums exactly on random drift, and the
+    broadcast resets the drift."""
     import torch
 
     _, gt = graphs
@@ -103,7 +105,7 @@ def test_merge_plain_matches_bincount(graphs):
     drift[:, :S] = rng.normal(size=(4, S)).astype(np.float32)
     st.drift.copy_(torch.from_numpy(drift))
     coords0 = st.coords.clone()
-    strata_sgd.merge_sum_plain(st.drift, st.mi, st.coords, st.upd)
+    getattr(strata_sgd, merge)(st.drift, st.mi, st.coords, st.upd)
 
     node = gt.step_handle >> 1
     epf = np.full(st.drift.shape[1], 2 * gt.num_nodes, np.int64)
@@ -124,6 +126,62 @@ def test_merge_plain_matches_bincount(graphs):
     assert not st.drift.any()
     want = base0[0].numpy() + st.upd[0].numpy()[epf].astype(np.float32)
     assert np.array_equal(st.base[0].numpy(), want)
+
+
+def test_merge_ordered_1d_matches_bincount_and_index_add(graphs):
+    """1D: the ordered loop equals np.bincount bit for bit and the
+    index_add_ merge within 1e-12 of the scale."""
+    import torch
+
+    _, gt = graphs
+    cfg = sgd.derive_config_1d(gt, iter_max=1, min_term_updates=3 * 1024)
+    st = strata_sgd.StrataState.build(gt, cfg, gt.node_offset.astype(np.float32), True,
+                                      torch.device("cpu"))
+    S = gt.num_steps
+    drift = np.zeros(st.drift.shape, np.float32)
+    drift[0, :S] = np.random.default_rng(3).normal(size=S).astype(np.float32) * 100
+    st.drift.copy_(torch.from_numpy(drift))
+    c_o, u_o, c_i, u_i = (t.clone() for t in (st.coords, st.upd, st.coords, st.upd))
+    strata_sgd.merge_sum_ordered_plain(st.drift, st.mi, c_o, u_o)
+    strata_sgd.merge_sum_plain(st.drift, st.mi, c_i, u_i)
+    node = gt.step_handle[:S] >> 1
+    r = np.bincount(node, minlength=gt.num_nodes).astype(np.float64)
+    recip = np.where(r > 0, 1.0 / np.maximum(r, 1), 0.0)
+    want = np.bincount(node, drift[0, :S].astype(np.float64), minlength=gt.num_nodes) * recip
+    assert np.array_equal(u_o[0, :gt.num_nodes].numpy(), want)
+    scale = float(c_i.abs().max()) + 1
+    assert float((c_o - c_i).abs().max()) / scale <= 1e-12
+    assert float((u_o - u_i).abs().max()) / scale <= 1e-12
+
+
+@pytest.mark.parametrize("lengths,want", [
+    ([1] * 50 + [0] * 5, 256),       # about one slot a list (sparse graphs)
+    ([4, 5, 6, 5] * 30, 256),        # about 5 (the 1M-node graph in 2D)
+    ([60, 75, 90] * 20, 32),         # 75 (the smoke graph in 2D)
+    ([250, 240, 260] * 20, 16),      # 250 (the XL graph in 2D)
+    ([500, 490, 510] * 20, 8),       # 500 (the XL graph in 1D)
+    ([9000, 8000] * 4, 2),           # lists past a tile: the floor
+    ([0, 0, 0], 256),                # no steps at all
+], ids=["one", "five", "seventy-five", "two-fifty", "five-hundred", "long", "empty"])
+def test_merge_block_eps_power_of_two(lengths, want):
+    b = strata_sgd.merge_block_eps(np.concatenate([[0], np.cumsum(lengths)]))
+    assert b == want and 2 <= b <= strata_sgd.SUM_THREADS and b & (b - 1) == 0
+
+
+def test_merge_index_block_eps_follow_list_length(graphs):
+    """MergeIndex.build sizes the blocks from the graph's own lists: at
+    most one tile of CSR entries a block, and no smaller than that needs."""
+    import torch
+
+    _, gt = graphs
+    for one_d in (True, False):
+        mi = strata_sgd.MergeIndex.build(gt, gt.num_steps + 4096, one_d, torch.device("cpu"))
+        off = mi.csr_off.numpy()
+        mean = off[-1] / (len(off) - 1)
+        assert mi.block_eps == strata_sgd.merge_block_eps(off)
+        assert mi.block_eps * mean <= strata_sgd.SUM_TILE
+        assert (mi.block_eps == strata_sgd.SUM_THREADS
+                or 2 * mi.block_eps * mean > strata_sgd.SUM_TILE)
 
 
 def test_out_of_slice_paths_raise(graphs):
