@@ -10,37 +10,41 @@ Phases, each printing one line or more:
      ptxas's registers, shared memory and spills per kernel;
   3. the resident kernels against their plain PyTorch versions on the card,
      group by group over an iter_max=2 plan of the smoke graph (1D and 2D),
-     with the stated tolerances; the leveled 2D chunk kernel equals the
-     chain kernel strata_chunks_2d, and strata_merge_sum equals the
-     ascending-order loop merge_sum_ordered_plain, bit for bit;
+     with the stated tolerances; the leveled chunk kernels equal the chain
+     kernels strata_chunks_2d / _1d, and
+     strata_merge_sum equals the ascending-order loop
+     merge_sum_ordered_plain, bit for bit;
   4. the smoke path at the default schedules through the entry points:
      synthetic GFA (1,500,000 steps = 30 paths x 50,000 steps over 10,000
      nodes) -> parse_gfa -> sort_pipeline("Ygs") -> layout_graph ->
      save_layout/load_layout (.lay) -> sum_of_path_node_distances, with the
-     quality and plan gates (the resident route); the layout again with its
-     chunk phase forced onto the chain kernel gives the same coordinates,
-     bit for bit;
+     quality and plan gates (the resident route); the Y sort and the layout
+     again with their chunk phases forced onto the chain kernels give the
+     same order and coordinates, bit for bit;
   5. the stream and blocked kernels against their plain versions and
-     against the resident kernels, and the leveled kernel against the chain
-     kernels, on short plans (a few hundred chunks a group) of the XL and
-     the 1M-node graphs;
+     against the resident kernels, and the leveled kernels against the
+     chain kernels, on short plans (a few hundred chunks a group) of the XL
+     and the 1M-node graphs;
   6. the XL path: 5,000,000 steps (100 paths x 50,000 over 10,000 nodes)
      -> sort_pipeline("Ygs") -> layout_graph -> .lay -> stats, on the "xl"
      route in 1D and 2D; the layout forced onto the "resident" route with
-     the chain kernel gives the same coordinates, bit for bit;
+     the chain kernel gives the same coordinates, bit for bit; then the
+     leveled 1D kernel against the stream chain kernel on the first groups
+     of the full 1D plan;
   7. the 1M-node path (tools/bigscale_bench.py --shuffle --quality):
      10,000,000 steps (10 paths over 1,000,000 nodes) -> sort_pipeline("Y")
      and layout_graph on the "xxl" route, gated on BIGSCALE_r05.json's start
      values and quality, then sort_pipeline("gs") and a .lay round trip;
-     then the leveled kernel against the stream chain kernel on the first
-     groups of the full 2D plan.
+     then, on the first groups of the full 1D and 2D plans, the leveled
+     kernels against the stream chain kernels, and the blocked sum against
+     the CSR sum (bit-equal) and one index_add_, each timed.
 Every path runs with the launch counts set to 0 just before it and read
-just after; each prints the conflict levels of its 2D plan and the host
-seconds that built them (host_s.levels_2d).  The line before the card line
-is one JSON object with every kernel's launches, error, times and bound
-(the chain 2D kernels, off the main path, with the times of their
-comparison launches); the last line is the ok/device object.  Any failed
-phase exits non-zero and prints no ok line.
+just after; each prints the conflict levels of its 1D and 2D plans and the
+host seconds that built them (host_s.levels_1d / levels_2d).  The line
+before the card line is one JSON object with every kernel's launches,
+error, times and bound (the chain kernels, off the main path, with the
+times of their comparison launches); the last line is the ok/device
+object.  Any failed phase exits non-zero and prints no ok line.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ import torch
 import odgi_tpu_torch as ot
 from odgi_tpu_torch.algorithms import groom, layout, path_sgd_sort, topological
 from odgi_tpu_torch.ops import (kernels, strata_levels, strata_plan, strata_route, strata_sgd,
-                                strata_xxl)
+                                strata_xl, strata_xxl)
 from odgi_tpu_torch.ops.sgd import derive_config_1d, derive_config_2d
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
@@ -90,21 +94,26 @@ START_RTOL = 1e-6
 BIG_NT_AFTER_MAX = 1.558       # BIGSCALE's 1.4836 plus 5%
 BIG_STRESS_AFTER_MAX = 1.353   # BIGSCALE's 1.2882 plus 5%
 SHORT_TERMS = 1024 * 1024      # short plans: a few hundred chunks a group
+BUSY_CYCLES = 2_000_000        # about 1 ms of the card's clock, past any wrapper's host time
 
 RESIDENT = ("strata_chunks_2d", "strata_chunks_1d", "strata_merge_sum",
             "strata_merge_bcast")
 STREAM = ("strata_chunks_2d_stream", "strata_chunks_1d_stream")
 BLOCKED = ("strata_merge_sum_blocked", "strata_merge_bcast_blocked")
-LEVELS = "strata_chunks_2d_levels"
-# The 2D chain kernels: off the main path, launched only to hold the leveled
-# kernel bit-equal and to time old against new.
-CHAIN_2D = ("strata_chunks_2d", "strata_chunks_2d_stream")
+LEVELS_2D, LEVELS_1D = "strata_chunks_2d_levels", "strata_chunks_1d_levels"
+LEVELS = {False: LEVELS_2D, True: LEVELS_1D}  # by one_d
+# The chain kernels: off the main path, launched only to hold the leveled
+# kernels bit-equal and to time old against new.
+CHAIN = ("strata_chunks_2d", "strata_chunks_2d_stream", "strata_chunks_1d",
+         "strata_chunks_1d_stream")
+CHAIN_OF = {(False, False): "strata_chunks_2d", (False, True): "strata_chunks_2d_stream",
+            (True, False): "strata_chunks_1d", (True, True): "strata_chunks_1d_stream"}
 ROUTE_KERNELS = {
-    "resident": (LEVELS, "strata_chunks_1d", "strata_merge_sum", "strata_merge_bcast"),
-    "xl": (LEVELS, "strata_chunks_1d_stream", "strata_merge_sum", "strata_merge_bcast"),
-    "xxl": (LEVELS, "strata_chunks_1d_stream") + BLOCKED,
+    "resident": (LEVELS_2D, LEVELS_1D, "strata_merge_sum", "strata_merge_bcast"),
+    "xl": (LEVELS_2D, LEVELS_1D, "strata_merge_sum", "strata_merge_bcast"),
+    "xxl": (LEVELS_2D, LEVELS_1D) + BLOCKED,
 }
-FULL_GROUPS = 2  # groups of the 1M graph's full 2D plan run on both kernels
+FULL_GROUPS = 2  # groups of a full plan run on the leveled and the chain kernels
 REPLACES = {
     "strata_chunks_2d": "odgi_tpu/ops/pallas_sgd.py:1105",
     "strata_chunks_1d": "odgi_tpu/ops/pallas_sgd.py:1158",
@@ -114,14 +123,16 @@ REPLACES = {
     "strata_chunks_1d_stream": "odgi_tpu/ops/pallas_sgd_xl.py:795",
     "strata_merge_sum_blocked": "odgi_tpu/ops/pallas_sgd_xxl.py:212",
     "strata_merge_bcast_blocked": "odgi_tpu/ops/pallas_sgd_xxl.py:212",
-    LEVELS: "odgi_tpu/ops/pallas_sgd.py:1105",
+    LEVELS_2D: "odgi_tpu/ops/pallas_sgd.py:1105",
+    LEVELS_1D: "odgi_tpu/ops/pallas_sgd.py:1158",
 }
 ALSO_REPLACES = {
     "strata_chunks_2d_stream": ["odgi_tpu/ops/pallas_sgd_xxl.py:212"],
     "strata_chunks_1d_stream": ["odgi_tpu/ops/pallas_sgd_xxl.py:632"],
     "strata_merge_sum_blocked": ["odgi_tpu/ops/pallas_sgd_xxl.py:632"],
     "strata_merge_bcast_blocked": ["odgi_tpu/ops/pallas_sgd_xxl.py:632"],
-    LEVELS: ["odgi_tpu/ops/pallas_sgd_xl.py:363", "odgi_tpu/ops/pallas_sgd_xxl.py:212"],
+    LEVELS_2D: ["odgi_tpu/ops/pallas_sgd_xl.py:363", "odgi_tpu/ops/pallas_sgd_xxl.py:212"],
+    LEVELS_1D: ["odgi_tpu/ops/pallas_sgd_xl.py:795", "odgi_tpu/ops/pallas_sgd_xxl.py:632"],
 }
 # Kernels with one PyTorch call that computes the same function (an f64
 # index_add_), timed as a yardstick only.
@@ -129,7 +140,8 @@ LIBRARY = ("strata_merge_sum", "strata_merge_sum_blocked")
 SOURCES = {**{n: "odgi_tpu_torch/csrc/strata_sgd.cu" for n in RESIDENT},
            **{n: "odgi_tpu_torch/csrc/strata_stream.cu" for n in STREAM},
            **{n: "odgi_tpu_torch/csrc/strata_blocked.cu" for n in BLOCKED},
-           LEVELS: "odgi_tpu_torch/csrc/strata_levels.cu"}
+           LEVELS_2D: "odgi_tpu_torch/csrc/strata_levels.cu",
+           LEVELS_1D: "odgi_tpu_torch/csrc/strata_levels.cu"}
 
 
 def fail(msg: str) -> None:
@@ -300,7 +312,7 @@ def schedule_stats(g, one_d: bool) -> dict:
 class Record:
     """Errors, plain and library times of the comparison phases; launch
     times of the counted paths; bounds per counted launch; times and bounds
-    of the chain 2D kernels' comparison launches (cmp_ms, cmp_bounds)."""
+    of the chain kernels' comparison launches (cmp_ms, cmp_bounds)."""
 
     def __init__(self):
         self.err = {n: {} for n in kernels.NAMES}
@@ -309,11 +321,34 @@ class Record:
         self.events = {n: {} for n in kernels.NAMES}
         self.bounds = {n: {} for n in kernels.NAMES}
         self.launches = {n: {} for n in kernels.NAMES}
-        self.cmp_ms = {n: {} for n in CHAIN_2D}
-        self.cmp_bounds = {n: {} for n in CHAIN_2D}
+        self.cmp_ms = {n: {} for n in CHAIN}
+        self.cmp_bounds = {n: {} for n in CHAIN}
 
     def add(self, table: str, name: str, key: str, value) -> None:
         getattr(self, table)[name].setdefault(key, []).append(value)
+
+
+def sync_of(st) -> torch.Tensor:
+    """The sync flags the stream chain kernels read, for the state's plan."""
+    return torch.as_tensor(strata_xl.sync_flags(st.plan), device=st.od.device)
+
+
+def run_levels(st, gid: int, drift) -> None:
+    """Group `gid` of the state through its leveled kernel, in place on
+    `drift`."""
+    p = st.plan
+    getattr(kernels, LEVELS[st.one_d])(drift, st.base, st.planes, st.od, st.eta, p["cpi"],
+                                       st.perm, st.lvl_rows[gid])
+
+
+def run_chain(st, gid: int, drift, chain: str, sync=None) -> None:
+    """Group `gid` through the chain kernel `chain`, in place on `drift`."""
+    p = st.plan
+    tail = (st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
+    if chain.endswith("_stream"):
+        getattr(kernels, chain)(drift, st.base, st.planes, st.od, sync, *tail)
+    else:
+        getattr(kernels, chain)(drift, st.base, st.planes, st.od, *tail)
 
 
 def library_merge_sum(st) -> float:
@@ -330,12 +365,14 @@ def library_merge_sum(st) -> float:
     acc = torch.zeros((st.mi.ecap, nc), dtype=torch.float64, device=dv.device)
     acc.index_add_(0, idx, src)  # warm-up
     acc.zero_()
-    t = Timer()
-    acc.index_add_(0, idx, src)
-    return t.stop().ms()
+    return timed(acc.index_add_, 0, idx, src)
 
 
 def timed(fn, *args) -> float:
+    """Device time of fn(*args).  A spin kernel queued first keeps the card
+    busy while the host runs the wrapper, so the events time the launches
+    alone, as on the main path, where the previous kernel keeps it busy."""
+    torch.cuda._sleep(BUSY_CYCLES)
     t = Timer()
     fn(*args)
     return t.stop().ms()
@@ -358,57 +395,46 @@ def level_stats(p: dict, lvl_off: np.ndarray) -> dict:
                 chunks_per_level=float(p["cgs"] / depth.mean()))
 
 
-def compare_levels(st, gid: int, rec: Record, key: str, chain: str,
+def compare_levels(st, gid: int, rec: Record, key: str, chain: str, sync=None,
                    record: bool = True) -> dict:
-    """Group `gid` of a 2D state through the leveled kernel and the chain
+    """Group `gid` of a state through its leveled kernel and the chain
     kernel `chain` on the same inputs: torch.equal drift, or fail.  The
     chain launch's time and bound go to the comparison records when
-    `record` (groups of a main path's size); returns the leveled drift and
-    both times."""
-    p = st.plan
-    tail = (st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
+    `record` (groups of a main path's size).  Returns the leveled drift and
+    the times."""
+    name = LEVELS[st.one_d]
     d_l, d_c = st.drift.clone(), st.drift.clone()
-    l_ms = timed(kernels.strata_chunks_2d_levels, d_l, st.base, st.planes, st.od, st.eta,
-                 p["cpi"], st.perm, st.lvl_rows[gid])
-    if chain == "strata_chunks_2d":
-        c_ms = timed(kernels.strata_chunks_2d, d_c, st.base, st.planes, st.od, *tail)
-    else:
-        c_ms = timed(kernels.strata_chunks_2d_stream, d_c, st.base, st.planes, st.od, st.sync,
-                     *tail)
+    l_ms = timed(run_levels, st, gid, d_l)
+    c_ms = timed(run_chain, st, gid, d_c, chain, sync)
     if not torch.equal(d_l, d_c):
-        fail(f"{LEVELS} {key} group {gid}: differs from {chain} "
+        fail(f"{name} {key} group {gid}: differs from {chain} "
              f"(max {float((d_l - d_c).abs().max()):.3e})")
+    out = dict(drift=d_l, levels_ms=l_ms, chain_ms=c_ms,
+               levels=int(st.lvl_rows[gid].shape[0] - 1))
     if record:
         rec.add("cmp_ms", chain, key, c_ms)
-        rec.add("cmp_bounds", chain, key, chunk_bounds(p, False)[gid])
-    return dict(drift=d_l, levels_ms=l_ms, chain_ms=c_ms,
-                levels=int(st.lvl_rows[gid].shape[0] - 1))
+        rec.add("cmp_bounds", chain, key, chunk_bounds(st.plan, st.one_d)[gid])
+    return out
 
 
 def compare_group(st, gid: int, rec: Record, key: str) -> None:
     """Run group `gid` through each kernel and its plain version on the same
-    inputs, check them, and continue from the kernel's state.  2D: the
-    leveled kernel, which must equal the chain kernel bit for bit."""
+    inputs, check them, and continue from the kernel's state.  The chunk
+    phase runs on the leveled kernel, which must equal the chain kernel
+    strata_chunks_2d / _1d bit for bit."""
     p = st.plan
     args = (st.base, st.planes, st.od, st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
     scale = float(st.base.abs().max()) + 1.0
-    line = dict(key=key, group=gid)
+    name, chain = LEVELS[st.one_d], CHAIN_OF[(st.one_d, False)]
+    lv = compare_levels(st, gid, rec, key, chain)
+    d_k = lv["drift"]
+    line = dict(key=key, group=gid, chunk_ms=lv["levels_ms"], chain_chunk_ms=lv["chain_ms"],
+                levels=lv["levels"])
     d_p = st.drift.clone()
-    if st.one_d:
-        name = "strata_chunks_1d"
-        d_k = st.drift.clone()
-        line["chunk_ms"] = timed(kernels.strata_chunks_1d, d_k, *args)
-        p_ms = timed(strata_sgd.chunks_1d_plain, d_p, *args)
-    else:
-        name = LEVELS
-        lv = compare_levels(st, gid, rec, key, "strata_chunks_2d")
-        d_k = lv["drift"]
-        line.update(chunk_ms=lv["levels_ms"], chain_chunk_ms=lv["chain_ms"],
-                    levels=lv["levels"])
-        p_ms = timed(strata_sgd.chunks_2d_plain, d_p, *args)
+    plain = strata_sgd.chunks_1d_plain if st.one_d else strata_sgd.chunks_2d_plain
+    p_ms = timed(plain, d_p, *args)
     err = float((d_k - d_p).abs().max())
-    names = (name,) if st.one_d else (name, "strata_chunks_2d")  # equal drift
-    for n in names:
+    for n in (name, chain):  # equal drift
         rec.add("err", n, key, err)
         rec.add("plain_ms", n, key, p_ms)
     if not err / scale <= CHUNK_TOL:
@@ -463,9 +489,10 @@ def compare_merges(st, gid: int, rec: Record, key: str):
     return s_ms, sp_ms, b_ms, bp_ms
 
 
-def warm_up(st) -> None:
+def warm_up(st, sync=None) -> None:
     """One untimed call of every kernel and plain version of the state's
-    route on copies, so that no timed call pays for first-use set-up."""
+    route (and of the chain kernels) on copies, so that no timed call pays
+    for first-use set-up."""
     p = st.plan
     args = (st.base, st.planes, st.od)
     tail = (st.eta, p["cpi"], 0, 1)
@@ -473,17 +500,16 @@ def warm_up(st) -> None:
     chunks = kernels.strata_chunks_1d if st.one_d else kernels.strata_chunks_2d
     chunks(st.drift.clone(), *args, *tail)
     plain(st.drift.clone(), *args, *tail)
-    if not st.one_d:
-        kernels.strata_chunks_2d_levels(st.drift.clone(), *args, st.eta, p["cpi"], st.perm,
-                                        st.lvl_rows[0][:2])
+    getattr(kernels, LEVELS[st.one_d])(st.drift.clone(), *args, st.eta, p["cpi"], st.perm,
+                                       st.lvl_rows[0][:2])
     for merge in (kernels.strata_merge_sum, strata_sgd.merge_sum_plain):
         merge(st.drift, st.mi, st.coords.clone(), st.upd.clone())
     for bcast in (kernels.strata_merge_bcast, strata_sgd.merge_bcast_plain):
         bcast(st.drift.clone(), st.base.clone(), st.mi, st.upd)
-    if st.route != "resident":
+    if sync is not None:
         stream = (kernels.strata_chunks_1d_stream if st.one_d
                   else kernels.strata_chunks_2d_stream)
-        stream(st.drift.clone(), *args, st.sync, *tail)
+        stream(st.drift.clone(), *args, sync, *tail)
     if st.route == "xxl":
         kernels.strata_merge_sum_blocked(st.drift, st.mi, st.bsch, st.coords.clone(),
                                          st.upd.clone())
@@ -506,7 +532,7 @@ def phase_kernels(g, dev, rec: Record) -> None:
     torch.cuda.synchronize()
     say("kernels_vs_plain", **{n: dict(max_abs_err=max(x for v in rec.err[n].values()
                                                        for x in v))
-                               for n in RESIDENT + (LEVELS,)})
+                               for n in RESIDENT + (LEVELS_2D, LEVELS_1D)})
 
 
 # ---------------------------------------------------------------------------
@@ -515,28 +541,23 @@ def phase_kernels(g, dev, rec: Record) -> None:
 # ---------------------------------------------------------------------------
 
 
-def compare_stream_group(st, gid: int, rec: Record, key: str) -> None:
+def compare_stream_group(st, gid: int, rec: Record, key: str, sync) -> None:
     """Group `gid` through the stream chunk kernel, the resident chunk
     kernel and the plain version on the same inputs; the stream kernel must
     equal the resident one exactly and the plain one within CHUNK_TOL, and
-    in 2D the leveled kernel must equal them exactly.  On the "xxl" route
-    the same for the blocked merges (the plain versions on group 0 only),
-    and the CSR sum must equal merge_sum_ordered_plain.  Continues from the
+    the leveled kernel must equal them exactly.  On the "xxl" route the
+    same for the blocked merges (the plain versions on group 0 only), and
+    the CSR sum must equal merge_sum_ordered_plain.  Continues from the
     new kernels' state."""
     p = st.plan
     args = (st.base, st.planes, st.od)
     tail = (st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
     scale = float(st.base.abs().max()) + 1.0
-    if st.one_d:
-        name, stream, resident = ("strata_chunks_1d_stream", kernels.strata_chunks_1d_stream,
-                                  kernels.strata_chunks_1d)
-        plain = strata_sgd.chunks_1d_plain
-    else:
-        name, stream, resident = ("strata_chunks_2d_stream", kernels.strata_chunks_2d_stream,
-                                  kernels.strata_chunks_2d)
-        plain = strata_sgd.chunks_2d_plain
+    name, resident_name = CHAIN_OF[(st.one_d, True)], CHAIN_OF[(st.one_d, False)]
+    stream, resident = getattr(kernels, name), getattr(kernels, resident_name)
+    plain = strata_sgd.chunks_1d_plain if st.one_d else strata_sgd.chunks_2d_plain
     d_s, d_r, d_p = st.drift.clone(), st.drift.clone(), st.drift.clone()
-    s_ms = timed(stream, d_s, *args, st.sync, *tail)
+    s_ms = timed(stream, d_s, *args, sync, *tail)
     r_ms = timed(resident, d_r, *args, *tail)
     p_ms = timed(plain, d_p, *args, *tail)
     if not torch.equal(d_s, d_r):
@@ -548,14 +569,13 @@ def compare_stream_group(st, gid: int, rec: Record, key: str) -> None:
     if not err / scale <= CHUNK_TOL:
         fail(f"{name} {key} group {gid}: max|drift delta|/scale {err / scale:.3e} > {CHUNK_TOL}")
     line = dict(key=key, group=gid, chunk_ms=s_ms, resident_chunk_ms=r_ms, chunk_plain_ms=p_ms,
-                sync_ones=int(st.sync[gid * p["cgs"]:(gid + 1) * p["cgs"]].sum()), cgs=p["cgs"])
-    if not st.one_d:
-        lv = compare_levels(st, gid, rec, key, "strata_chunks_2d", record=False)
-        if not torch.equal(lv["drift"], d_s):
-            fail(f"{LEVELS} {key} group {gid}: differs from {name}")
-        rec.add("err", LEVELS, key, err)
-        rec.add("plain_ms", LEVELS, key, p_ms)
-        line.update(levels_chunk_ms=lv["levels_ms"], levels=lv["levels"])
+                sync_ones=int(sync[gid * p["cgs"]:(gid + 1) * p["cgs"]].sum()), cgs=p["cgs"])
+    lv = compare_levels(st, gid, rec, key, resident_name, record=False)
+    if not torch.equal(lv["drift"], d_s):
+        fail(f"{LEVELS[st.one_d]} {key} group {gid}: differs from {name}")
+    rec.add("err", LEVELS[st.one_d], key, err)
+    rec.add("plain_ms", LEVELS[st.one_d], key, p_ms)
+    line.update(levels_chunk_ms=lv["levels_ms"], levels=lv["levels"])
     st.drift = d_s
 
     if st.route != "xxl":  # the XL route merges with the CSR kernels
@@ -614,9 +634,10 @@ def phase_stream_kernels(g, label: str, route: str, dev, rec: Record) -> None:
             cfg = derive_config_2d(g, iter_max=2, min_term_updates=SHORT_TERMS)
             init = ot.init_layout(g, "d")
         st = strata_sgd.StrataState.build(g, cfg, init, one_d, dev, route)
-        warm_up(st)
+        sync = sync_of(st)
+        warm_up(st, sync)
         for gid in range(st.plan["groups"]):
-            compare_stream_group(st, gid, rec, key)
+            compare_stream_group(st, gid, rec, key, sync)
         if not bool(torch.isfinite(st.coords).all()):
             fail(f"{key} coordinates not finite after the comparison run")
         del st
@@ -654,7 +675,8 @@ class KernelTimes:
             "strata_merge_bcast": lambda a: "1d" if a[3].shape[0] == 1 else "2d",
             "strata_merge_sum_blocked": lambda a: "1d" if a[3].shape[0] == 1 else "2d",
             "strata_merge_bcast_blocked": lambda a: "1d" if a[4].shape[0] == 1 else "2d",
-            LEVELS: lambda a: "2d",
+            LEVELS_2D: lambda a: "2d",
+            LEVELS_1D: lambda a: "1d",
         }
         for n in kernels.NAMES:
             setattr(kernels, n, wrap(n, self.orig[n], dim[n]))
@@ -681,7 +703,8 @@ class KernelTimes:
 def counted(label: str, rec: Record, fn):
     """Run `fn` with the launch counts set to 0 just before and read just
     after; per-launch times go to `rec`.  The conflict levels the run
-    builds, and the host seconds they take, go to out["levels_2d"]."""
+    builds (one 1D plan for the sort, one 2D plan for the layout), and the
+    host seconds they take, go to out["levels_1d"] / out["levels_2d"]."""
     times = KernelTimes(label)
     built = []
     build_levels = strata_levels.chunk_levels
@@ -689,7 +712,8 @@ def counted(label: str, rec: Record, fn):
     def timed_levels(p):
         t0 = time.perf_counter()
         perm, lvl_off = build_levels(p)
-        built.append((time.perf_counter() - t0, level_stats(p, lvl_off)))
+        built.append(("1d" if p["data"].one_d else "2d", time.perf_counter() - t0,
+                      level_stats(p, lvl_off)))
         return perm, lvl_off
 
     torch.cuda.reset_peak_memory_stats()
@@ -702,10 +726,12 @@ def counted(label: str, rec: Record, fn):
         times.uninstall()
         strata_levels.chunk_levels = build_levels
     torch.cuda.synchronize()
-    if len(built) != 1:
-        fail(f"{label}: {len(built)} level builds, expected one (the 2D layout)")
-    out["levels_2d"] = dict(seconds=built[0][0], **built[0][1])
-    say("levels", path=label, **out["levels_2d"])
+    tags = sorted(tag for tag, _, _ in built)
+    if tags != ["1d", "2d"]:
+        fail(f"{label}: level builds {tags}, expected one 1D (the sort) and one 2D (the layout)")
+    for tag, seconds, stats in built:
+        out[f"levels_{tag}"] = dict(seconds=seconds, **stats)
+        say("levels", path=label, dim=tag, **out[f"levels_{tag}"])
     out["launches"] = dict(kernels.LAUNCHES)
     out["sgd_device_s"] = times.into(rec)
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
@@ -715,9 +741,10 @@ def counted(label: str, rec: Record, fn):
     return out
 
 
-def check_routes(out: dict, label: str, route: str, routes: dict) -> None:
+def check_routes(out: dict, label: str, route: str, routes: dict, groups: dict) -> None:
     """The path took `route` in both dimensions: each of its kernels ran,
-    and no kernel of another route did."""
+    no kernel of another route did, and each leveled kernel ran once a
+    merge group of its plan (`groups` by "1d" / "2d")."""
     say("routes", path=label, routes=routes)
     if any(r != route for r in routes.values()):
         fail(f"{label}: routes {routes}, expected {route!r}")
@@ -728,6 +755,9 @@ def check_routes(out: dict, label: str, route: str, routes: dict) -> None:
             fail(f"{label}: {n} was not launched on the {route} route")
         if n not in used and c != 0:
             fail(f"{label}: {n} was launched {c} times on the {route} route")
+    for tag, n in (("1d", LEVELS_1D), ("2d", LEVELS_2D)):
+        if out["launches"][n] != groups[tag]:
+            fail(f"{label}: {n} launched {out['launches'][n]} times for {groups[tag]} groups")
 
 
 def check_plan(g, tag: str, cfg, one_d: bool, host_s: dict) -> dict:
@@ -769,23 +799,23 @@ def lay_roundtrip(coords: np.ndarray, path: str, dev, out: dict) -> None:
 def add_bounds(rec: Record, label: str, g_1d, p1: dict, g_2d, p2: dict,
                route: str) -> None:
     """Bounds of every launch the path made, per kernel and dimension."""
-    chunks = ("strata_chunks_1d" if route == "resident" else "strata_chunks_1d_stream", LEVELS)
     suffix = "_blocked" if route == "xxl" else ""
     merges = (f"strata_merge_sum{suffix}", f"strata_merge_bcast{suffix}")
     for (g, p, one_d, tag) in ((g_1d, p1, True, "1d"), (g_2d, p2, False, "2d")):
         key = f"{label}/{tag}"
-        rec.bounds[chunks[0 if one_d else 1]][key] = chunk_bounds(p, one_d)
+        rec.bounds[LEVELS[one_d]][key] = chunk_bounds(p, one_d)
         rec.bounds[merges[0]][key] = [merge_sum_bound(g, one_d)]
         rec.bounds[merges[1]][key] = [merge_bcast_bound(g, p["data"].num_slots, one_d)]
 
 
-def run_on_chain(fn, rec: Record, key: str, p: dict):
-    """Run `fn` with the 2D chunk phase forced onto the chain kernel
-    strata_chunks_2d (the chunks each group's levels cover, in chain
-    order); each chain launch's time and bound go to the comparison
-    records under `key`.  `p` is the 2D plan `fn` runs."""
-    leveled = kernels.strata_chunks_2d_levels
-    bounds = chunk_bounds(p, False)
+def run_on_chain(fn, rec: Record, key: str, p: dict, one_d: bool = False):
+    """Run `fn` with the chunk phase of `p`'s dimension forced onto the
+    chain kernel strata_chunks_2d / _1d (the chunks each group's levels
+    cover, in chain order); each chain launch's time and bound go to the
+    comparison records under `key`.  `p` is the plan `fn` runs."""
+    attr, chain_name = LEVELS[one_d], CHAIN_OF[(one_d, False)]
+    leveled = getattr(kernels, attr)
+    bounds = chunk_bounds(p, one_d)
     launched = []
 
     def chain(drift, base, planes, od, eta, cpi, perm, lvl_off):
@@ -794,19 +824,19 @@ def run_on_chain(fn, rec: Record, key: str, p: dict):
         if n != p["cgs"]:
             fail(f"{key}: a group of {n} chunks, the plan has {p['cgs']}")
         t = Timer()
-        kernels.strata_chunks_2d(drift, base, planes, od, eta, cpi, g0, n)
+        getattr(kernels, chain_name)(drift, base, planes, od, eta, cpi, g0, n)
         launched.append((t.stop(), bounds[g0 // n]))
 
-    kernels.strata_chunks_2d_levels = chain
+    setattr(kernels, attr, chain)
     try:
         out = fn()
     finally:
-        kernels.strata_chunks_2d_levels = leveled
+        setattr(kernels, attr, leveled)
     if len(launched) != p["groups"]:
         fail(f"{key}: {len(launched)} chain launches for {p['groups']} groups")
     for t, b in launched:
-        rec.add("cmp_ms", "strata_chunks_2d", key, t.ms())
-        rec.add("cmp_bounds", "strata_chunks_2d", key, b)
+        rec.add("cmp_ms", chain_name, key, t.ms())
+        rec.add("cmp_bounds", chain_name, key, b)
     return out
 
 
@@ -851,7 +881,7 @@ def phase_smoke(gfa_path: str, tmp: str, dev, rec: Record) -> dict:
     g, g2, p1, p2, coords = (state[k] for k in ("g", "g2", "p1", "p2", "coords"))
     routes = {"1d": strata_route.graph_route(g, derive_config_1d(g), True),
               "2d": strata_route.graph_route(g2, derive_config_2d(g2), False)}
-    check_routes(out, "smoke", "resident", routes)
+    check_routes(out, "smoke", "resident", routes, {"1d": p1["groups"], "2d": p2["groups"]})
     # Host steps of the sort outside the SGD, timed alone on the sorted
     # graph (the same size as the graph the pipeline grooms and orders).
     for name, fn in (("groom", groom.apply_groom),
@@ -859,16 +889,26 @@ def phase_smoke(gfa_path: str, tmp: str, dev, rec: Record) -> dict:
         t0 = time.perf_counter()
         fn(g2)
         host_s[name] = time.perf_counter() - t0
-    host_s["levels_2d"] = out["levels_2d"]["seconds"]
+    for tag in ("1d", "2d"):
+        host_s[f"levels_{tag}"] = out[f"levels_{tag}"]["seconds"]
     out["host_s"] = host_s
     add_rates(out, p1, p2, "sort_Ygs")
-    # the same layout with the chunk phase on the chain kernel: the same
-    # coordinates, bit for bit
+    # the Y sort and the layout with their chunk phases on the chain
+    # kernels: the same order and coordinates, bit for bit
+    g_lv = ot.sort_pipeline(g, "Y", device=dev)
+    t0 = time.perf_counter()
+    g_ch = run_on_chain(lambda: ot.sort_pipeline(g, "Y", device=dev), rec, "smoke/1d", p1,
+                        one_d=True)
+    out["sort_Y_chain_s"] = sync_wall(t0)
+    out["sort_Y_chain_equal"] = bool(np.array_equal(g_lv.node_id, g_ch.node_id)
+                                     and np.array_equal(g_lv.step_handle, g_ch.step_handle))
     t0 = time.perf_counter()
     chain = run_on_chain(lambda: ot.layout_graph(g2, device=dev), rec, "smoke/2d", p2)
     out["layout_chain_s"] = sync_wall(t0)
     out["chain_equal"] = bool(np.array_equal(chain, coords))
     say("main_path", path="smoke", **out, twin=TWIN)
+    if not out["sort_Y_chain_equal"]:
+        fail("smoke Y sort differs from the same sort on the chain kernel")
     if not out["chain_equal"]:
         fail(f"smoke layout differs from the chain kernel's (max {np.abs(chain - coords).max()})")
 
@@ -914,15 +954,15 @@ def phase_xl(g, tmp: str, dev, rec: Record) -> dict:
     cfg1, cfg2 = derive_config_1d(g), derive_config_2d(g2)
     routes = {"1d": strata_route.graph_route(g, cfg1, True),
               "2d": strata_route.graph_route(g2, cfg2, False)}
-    check_routes(out, "xl", "xl", routes)
     p1 = strata_plan.plan_run(g, cfg1, one_d=True)
     p2 = strata_plan.plan_run(g2, cfg2, one_d=False)
+    check_routes(out, "xl", "xl", routes, {"1d": p1["groups"], "2d": p2["groups"]})
     add_rates(out, p1, p2, "sort_Ygs")
     out["plan"] = {tag: dict(cpi=p["cpi"], cgs=p["cgs"], groups=p["groups"],
                              total_valid=p["total_valid"], slots=p["data"].num_slots)
                    for tag, p in (("1d", p1), ("2d", p2))}
 
-    out["host_s"] = dict(levels_2d=out["levels_2d"]["seconds"])
+    out["host_s"] = {f"levels_{tag}": out[f"levels_{tag}"]["seconds"] for tag in ("1d", "2d")}
     # the same layout on the resident route with the chain kernel: the same
     # coordinates, bit for bit
     t0 = time.perf_counter()
@@ -939,6 +979,7 @@ def phase_xl(g, tmp: str, dev, rec: Record) -> dict:
     if not (out["nt_after"] < out["nt_before"] and out["stress_after"] < out["stress_before"]):
         fail(f"xl quality did not improve: {out}")
     add_bounds(rec, "xl", g, p1, g2, p2, "xl")
+    full_groups(g, cfg1, g.node_offset.astype(np.float32), True, "xl", "xl/1d", dev, rec)
     return out
 
 
@@ -987,9 +1028,9 @@ def phase_big(g, tmp: str, dev, rec: Record) -> dict:
     cfg1, cfg2 = derive_config_1d(g), derive_config_2d(g)
     routes = {"1d": strata_route.graph_route(g, cfg1, True),
               "2d": strata_route.graph_route(g, cfg2, False)}
-    check_routes(out, "big", "xxl", routes)
     p1 = strata_plan.plan_run(g, cfg1, one_d=True)
     p2 = strata_plan.plan_run(g, cfg2, one_d=False)
+    check_routes(out, "big", "xxl", routes, {"1d": p1["groups"], "2d": p2["groups"]})
     add_rates(out, p1, p2, "sort_Y")
     out["plan"] = {tag: dict(cpi=p["cpi"], cgs=p["cgs"], groups=p["groups"],
                              total_valid=p["total_valid"], slots=p["data"].num_slots)
@@ -1005,7 +1046,8 @@ def phase_big(g, tmp: str, dev, rec: Record) -> dict:
         out["sort_gs_s"] = time.perf_counter() - t0
     finally:
         path_sgd_sort.apply_groom, path_sgd_sort.topological_order = saved
-    host_s["levels_2d"] = out["levels_2d"]["seconds"]
+    for tag in ("1d", "2d"):
+        host_s[f"levels_{tag}"] = out[f"levels_{tag}"]["seconds"]
     out["host_s"] = host_s
     out["nt_after_Ygs"] = ot.sum_of_path_node_distances(gYgs, device=dev).all_nt_space
     lay_roundtrip(coords, os.path.join(tmp, "big.lay"), dev, out)
@@ -1019,25 +1061,57 @@ def phase_big(g, tmp: str, dev, rec: Record) -> dict:
         fail(f"1M stress after layout {out['stress_after']} > {BIG_STRESS_AFTER_MAX}")
     g_run, _ = strata_xxl.relabel(g)
     add_bounds(rec, "big", g_run, p1, g_run, p2, "xxl")
-    levels_full(g, cfg2, c0, dev, rec)
+    full_groups(g, cfg1, g.node_offset.astype(np.float32), True, "xxl", "big/1d", dev, rec)
+    full_groups(g, cfg2, c0, False, "xxl", "big/2d", dev, rec)
     return out
 
 
-def levels_full(g, cfg, c0, dev, rec: Record) -> None:
-    """The first FULL_GROUPS groups of the 1M graph's full 2D plan (the
-    layout's) through the leveled kernel and the stream chain kernel, on
-    the "xxl" route's state: bit-equal drift; the chain's times go to the
-    comparison records."""
+def compare_sums(st) -> dict:
+    """The blocked sum, the CSR sum and one f64 index_add_ on the state's
+    drift, in turns (that order, then back): the blocked sum must equal the
+    CSR sum bit for bit.  Returns each one's mean time."""
+    ms = {k: [] for k in ("blocked", "csr", "index_add")}
+    outs = {}
+    for k in ("blocked", "csr", "index_add", "index_add", "csr", "blocked"):
+        if k == "index_add":
+            ms[k].append(library_merge_sum(st))
+            continue
+        c, u = st.coords.clone(), st.upd.clone()
+        if k == "csr":
+            ms[k].append(timed(kernels.strata_merge_sum, st.drift, st.mi, c, u))
+        else:
+            ms[k].append(timed(kernels.strata_merge_sum_blocked, st.drift, st.mi, st.bsch, c, u))
+        outs[k] = (c, u)
+    if not all(torch.equal(a, b) for a, b in zip(outs["blocked"], outs["csr"])):
+        fail("strata_merge_sum_blocked: differs from strata_merge_sum")
+    return {f"sum_{k}_ms": sum(v) / len(v) for k, v in ms.items()}
+
+
+def full_groups(g, cfg, init, one_d: bool, route: str, key: str, dev, rec: Record) -> None:
+    """The first FULL_GROUPS groups of a full plan (the main path's) through
+    the leveled kernel and the stream chain
+    kernel on the route's state: bit-equal drift; the chain's times go to
+    the comparison records.  On the "xxl" route each group's merge input
+    also goes through `compare_sums`."""
     t0 = time.perf_counter()
-    st = strata_sgd.StrataState.build(g, cfg, c0, False, dev, "xxl")
+    st = strata_sgd.StrataState.build(g, cfg, init, one_d, dev, route)
+    sync = sync_of(st)
     build_s = time.perf_counter() - t0
+    warm_up(st, sync)
     for gid in range(FULL_GROUPS):
-        lv = compare_levels(st, gid, rec, "big/2d", "strata_chunks_2d_stream")
-        say("levels_vs_chain", key="big/2d", group=gid, cgs=st.plan["cgs"], levels=lv["levels"],
-            levels_ms=lv["levels_ms"], chain_ms=lv["chain_ms"], state_build_s=build_s)
+        lv = compare_levels(st, gid, rec, key, CHAIN_OF[(one_d, True)], sync=sync)
+        line = dict(key=key, group=gid, cgs=st.plan["cgs"], levels=lv["levels"],
+                    levels_ms=lv["levels_ms"], chain_ms=lv["chain_ms"], state_build_s=build_s)
         st.drift = lv["drift"]
-        kernels.strata_merge_sum(st.drift, st.mi, st.coords, st.upd)
-        kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)
+        if route == "xxl":
+            line.update(compare_sums(st))
+            kernels.strata_merge_sum_blocked(st.drift, st.mi, st.bsch, st.coords, st.upd)
+            kernels.strata_merge_bcast_blocked(st.drift, st.base, st.mi, st.bsch, st.upd)
+        else:
+            kernels.strata_merge_sum(st.drift, st.mi, st.coords, st.upd)
+            kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)
+        say("levels_vs_chain", **line)
+    del st
     torch.cuda.synchronize()
 
 
@@ -1051,7 +1125,7 @@ def kernel_line(rec: Record) -> dict:
     counted path, the bound of those launches, and the plain version's and
     the library call's time per call on the same graph and dimension
     (weighted by the launches per path and dimension), and the same per
-    path.  The chain 2D kernels have no launch on a counted path: their
+    path.  The chain kernels have no launch on a counted path: their
     times and bounds are those of their comparison launches on groups of a
     main path's size."""
     mean = lambda xs: sum(xs) / len(xs) if xs else None
@@ -1060,7 +1134,7 @@ def kernel_line(rec: Record) -> dict:
         common = dict(name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],
                       also_replaces=ALSO_REPLACES.get(n),
                       max_abs_err=max(x for v in rec.err[n].values() for x in v))
-        if n in CHAIN_2D:
+        if n in CHAIN:
             if rec.events[n] or rec.launches[n]:
                 fail(f"{n}: launched on a counted path {rec.launches[n]}")
             per_path = {}
@@ -1124,7 +1198,9 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     report = [ln.strip() for ln in kernels.ptxas_report().splitlines()
               if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
-    say("build", seconds=build_s, ptxas=report, levels_grid_blocks=kernels.levels_grid_blocks())
+    say("build", seconds=build_s, ptxas=report,
+        levels_grid_blocks={"2d": kernels.levels_grid_blocks(),
+                            "1d": kernels.levels_grid_blocks(one_d=True)})
 
     rec = Record()
     with tempfile.TemporaryDirectory() as tmp:

@@ -16,23 +16,23 @@
 // contiguous (blk_off).  Nodes are relabeled by first visit, so a block's
 // slots lie in few tiles.
 //
-// strata_merge_sum_blocked: one thread block per node block of bs
-// endpoints.  Its f64 accumulators, its slice of 1/R and of the
-// coordinates, and one cursor per endpoint into the endpoint's CSR list
-// (ascending slots: the cursor, the list's end and the slot under the
-// cursor) live in shared memory.  It walks its entries in ascending tile
-// order; per entry it loads the tile's drift planes into shared memory
-// with coalesced loads, then each thread advances the cursors of its
-// endpoints through the slots that lie in the tile, adding each into the
-// endpoint's sum.  An endpoint with no slot in the tile costs one shared
-// read; device memory is read only for the slots consumed.  So every sum runs over its slots in
-// ascending order, as np.bincount and strata_merge_sum do.  The cursors
-// read the CSR, so the tile's handles are not loaded.  2D: a thread owns a
-// node (endpoints 2n, 2n+1); the list of endpoint e feeds e's forward sums
-// (planes 0, 2) and e^1's reverse sums (planes 1, 3).  No float atomics.
-// Shared memory a block, bs = 2048: 2D 200 KB (4 f64 sums, 1/R, 2 f64
-// coordinates and a 3-int cursor per endpoint, one 4-plane f32 tile),
-// 1D 88 KB.
+// strata_merge_sum_blocked: node block b (bs endpoints) is split over
+// thread blocks of 256 endpoints, a thread an endpoint.  Piece by piece of
+// its span of the merge CSR (its endpoints' lists are contiguous there;
+// 2D 1,536 entries, 1D 3,072), a thread block gathers the drift of the
+// piece's slots into shared memory in CSR order, 16 independent loads in
+// flight a thread, then each thread folds its endpoint's part of the piece
+// into its f64 sums in ascending slot order, one add after the other, as
+// np.bincount and strata_merge_sum do.  No float atomics, no tree
+// reduction.  2D: the list of endpoint e feeds e's forward sums (planes 0,
+// 2) and e^1's reverse sums (planes 1, 3), which meet their endpoint (the
+// neighbouring thread) in shared memory.  It reads the drift by slots, not
+// by the schedule's tiles: the function needs each real slot once, and the
+// schedule's tiles hold 6.6 reads a tile on the 1M-node graph (1.06 GB a
+// 2D merge).  A fold in CSR order reads each slot directly, so walking the
+// block's (block, tile) entries adds nothing to it and the kernel does
+// not read them; reading whole tiles through a cp.async ring, as the TPU
+// kernel does, was 4-5x slower on the card (PERF.md).
 //
 // strata_merge_bcast_blocked: one thread block per schedule entry.  It
 // stages the block's update (rounded to f32) in shared memory and walks the
@@ -41,25 +41,17 @@
 // exactly one entry, so no two thread blocks write one slot.  Thread
 // blocks past the last entry zero the drift of the pad slots [S, L).
 //
-// Bound on this card: bytes.  By the function: the drift of every real
-// slot, the CSR, 1/R and the coordinates once (sum); every slot's endpoint,
-// base and drift once (broadcast).  By the schedule: every scheduled
-// (block, tile) pair's tile read once, plus the node arrays once; the
-// ratio of tile reads to tiles is what relabeling keeps small
-// (chip_smoke.py reports it).  What the design does about it: each tile
-// read is one coalesced pass into shared memory, all of a thread's loads
-// in flight at once, and each slot's accumulation reads shared memory, not
-// a gather from device memory.  On the 1M-node graph the 2D schedule
-// still reads 6.6 tiles a tile (1.06 GB a merge), more than the CSR
-// merge's gather moves, so strata_merge_sum stays the faster merge on this
-// card (PERF.md).
+// The bound of both (the least time, chip_smoke.py's bound_ms) is by bytes:
+// the drift of every real slot, the CSR, 1/R and the coordinates once
+// (sum); every slot's endpoint, base and drift once (broadcast).
 //
 // Every entry launches on the given stream, allocates nothing and returns
 // cudaGetLastError().
 
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "strata_common.cuh"
 
@@ -67,129 +59,85 @@ namespace {
 
 using strata::TILE;
 
-constexpr int SUM_THREADS = 1024;
+constexpr int SUB_EPS = 256;  // endpoints (= threads) a thread block, of a node block
 constexpr int BCAST_THREADS = 512;
 
 template <int NC>
 __host__ __device__ constexpr int drift_planes() { return NC == 1 ? 1 : 4; }
 
-// Shared-memory bytes of the sum kernel for a block of bs endpoints.
+// CSR entries a thread block stages at once (2D 24 KB, 1D 12 KB of shared
+// memory), about its endpoints' mean span.
 template <int NC>
-size_t sum_smem_bytes(int bs) {
-  const int nacc = drift_planes<NC>();  // 2D: forward and reverse sums per channel
-  return (size_t)bs * sizeof(double) * (nacc + 1 + NC) +
-         (size_t)drift_planes<NC>() * TILE * sizeof(float) + (size_t)bs * 3 * sizeof(int);
-}
+__host__ __device__ constexpr int piece_len() { return NC == 1 ? 3072 : 1536; }
 
+// Node block b is split over nsub thread blocks of sub endpoints.
 template <int NC>
-__global__ void __launch_bounds__(SUM_THREADS, 1)
+__global__ void __launch_bounds__(SUB_EPS)
 strata_merge_sum_blocked_kernel(const float* __restrict__ drift, long long L,
                                 const int* __restrict__ csr_off,
                                 const int* __restrict__ csr_slot,
-                                const double* __restrict__ recip,
-                                double* __restrict__ coords, double* __restrict__ upd,
-                                int E, int ecap, const int* __restrict__ sched_tile,
-                                const int* __restrict__ blk_off, int bs) {
+                                const double* __restrict__ recip, double* __restrict__ coords,
+                                double* __restrict__ upd, int E, int ecap, int bs, int sub,
+                                int nsub) {
   constexpr int NP = drift_planes<NC>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  double* acc = reinterpret_cast<double*>(smem);  // [NP][bs]: 2D x_fwd, x_rev, y_fwd, y_rev
-  double* rcp = acc + NP * bs;                    // [bs]
-  double* crd = rcp + bs;                         // [NC][bs]
-  float* tile = reinterpret_cast<float*>(crd + NC * bs);  // [NP][TILE]
-  int* cur = reinterpret_cast<int*>(tile + NP * TILE);    // [bs] cursor into csr_slot
-  int* end = cur + bs;                                    // [bs] end of the list
-  int* nxt = end + bs;                                    // [bs] csr_slot[cur], or INT_MAX
+  constexpr int PIECE = piece_len<NC>();
+  constexpr int R = 16 / NP;  // CSR entries a thread gathers at once
+  __shared__ float vals[NP * PIECE];
+  __shared__ double xch[NC == 2 ? 2 * SUB_EPS : 1];
 
-  const int tid = threadIdx.x;
-  const long long e0 = (long long)blockIdx.x * bs;
+  const int b = blockIdx.x / nsub, part = blockIdx.x - b * nsub;
+  const long long e0 = (long long)b * bs + (long long)part * sub;
   if (e0 >= E) return;
-  const int ne = (int)min((long long)bs, (long long)E - e0);
-  for (int j = tid; j < ne; j += SUM_THREADS) {
-    rcp[j] = recip[e0 + j];
+  const int ne = (int)min((long long)min(sub, bs - part * sub), (long long)E - e0);
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int k0 = csr_off[e0], k1 = csr_off[e0 + ne];
+  // this thread's endpoint e0 + tid: its CSR list [f0, f1), its sums by plane
+  const int f0 = tid < ne ? csr_off[e0 + tid] : 0;
+  const int f1 = tid < ne ? csr_off[e0 + tid + 1] : 0;
+  double acc[NP];
 #pragma unroll
-    for (int ch = 0; ch < NC; ++ch) crd[ch * bs + j] = coords[ch * (long long)E + e0 + j];
+  for (int p = 0; p < NP; ++p) acc[p] = 0.0;
+  for (int q0 = k0; q0 < k1; q0 += PIECE) {
+    const int q1 = min(q0 + PIECE, k1);
+    for (int i0 = q0 + tid; i0 < q1; i0 += R * T) {
+      int sl[R];
 #pragma unroll
-    for (int q = 0; q < NP; ++q) acc[q * bs + j] = 0.0;
-    const int c0 = csr_off[e0 + j], c1 = csr_off[e0 + j + 1];
-    cur[j] = c0;
-    end[j] = c1;
-    nxt[j] = c0 < c1 ? csr_slot[c0] : INT_MAX;
+      for (int r = 0; r < R; ++r) sl[r] = i0 + r * T < q1 ? csr_slot[i0 + r * T] : -1;
+      float v[R][NP];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int p = 0; p < NP; ++p) v[r][p] = sl[r] >= 0 ? drift[p * L + sl[r]] : 0.0f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (sl[r] < 0) continue;
+#pragma unroll
+        for (int p = 0; p < NP; ++p) vals[p * PIECE + i0 + r * T - q0] = v[r][p];
+      }
+    }
+    __syncthreads();  // the piece is staged
+    const int hi = min(f1, q1);
+    for (int c = max(f0, q0); c < hi; ++c)  // ascending order, one add after the other
+#pragma unroll
+      for (int p = 0; p < NP; ++p) acc[p] += (double)vals[p * PIECE + c - q0];
+    __syncthreads();  // the next piece overwrites this one
   }
-
-  const int k1 = blk_off[blockIdx.x + 1];
-  for (int k = blk_off[blockIdx.x]; k < k1; ++k) {
-    const long long t0 = (long long)sched_tile[k] * TILE;
-    const long long t1 = t0 + TILE;
-    // the tile's loads, all issued before the first is used
-    float v[NP * TILE / SUM_THREADS];
-#pragma unroll
-    for (int p = 0; p < NP; ++p)
-#pragma unroll
-      for (int r = 0; r < TILE / SUM_THREADS; ++r)
-        v[p * (TILE / SUM_THREADS) + r] = drift[p * L + t0 + tid + r * SUM_THREADS];
-    __syncthreads();  // the previous tile is consumed
-#pragma unroll
-    for (int p = 0; p < NP; ++p)
-#pragma unroll
-      for (int r = 0; r < TILE / SUM_THREADS; ++r)
-        tile[p * TILE + tid + r * SUM_THREADS] = v[p * (TILE / SUM_THREADS) + r];
+  if constexpr (NC == 2) {  // the reverse sums run over the neighbour's list
+    xch[tid] = acc[1];
+    xch[T + tid] = acc[3];
     __syncthreads();
-    if constexpr (NC == 1) {
-      for (int j = tid; j < ne; j += SUM_THREADS) {
-        int s = nxt[j];
-        if (s >= t1) continue;
-        int c = cur[j];
-        const int e = end[j];
-        double a = acc[j];
-        do {
-          a += (double)tile[s - t0];
-          ++c;
-          s = c < e ? csr_slot[c] : INT_MAX;
-        } while (s < t1);
-        acc[j] = a;
-        cur[j] = c;
-        nxt[j] = s;
-      }
-    } else {
-      for (int n = tid; 2 * n < ne; n += SUM_THREADS) {
-#pragma unroll
-        for (int side = 0; side < 2; ++side) {
-          const int j = 2 * n + side, jr = j ^ 1;
-          int s = nxt[j];
-          if (s >= t1) continue;
-          int c = cur[j];
-          const int e = end[j];
-          double fx = acc[j], rx = acc[bs + jr], fy = acc[2 * bs + j], ry = acc[3 * bs + jr];
-          do {
-            const int i = (int)(s - t0);
-            fx += (double)tile[i];
-            rx += (double)tile[TILE + i];
-            fy += (double)tile[2 * TILE + i];
-            ry += (double)tile[3 * TILE + i];
-            ++c;
-            s = c < e ? csr_slot[c] : INT_MAX;
-          } while (s < t1);
-          acc[j] = fx;
-          acc[bs + jr] = rx;
-          acc[2 * bs + j] = fy;
-          acc[3 * bs + jr] = ry;
-          cur[j] = c;
-          nxt[j] = s;
-        }
-      }
-    }
+    acc[1] = xch[tid ^ 1];
+    acc[3] = xch[T + (tid ^ 1)];
   }
-  __syncthreads();
-  for (int j = tid; j < ne; j += SUM_THREADS) {
+  if (tid >= ne) return;
+  const long long e = e0 + tid;
+  const double rc = recip[e];
 #pragma unroll
-    for (int ch = 0; ch < NC; ++ch) {
-      double s;
-      if constexpr (NC == 1) s = acc[j];
-      else s = acc[(2 * ch) * bs + j] + acc[(2 * ch + 1) * bs + j];
-      const double u = s * rcp[j];
-      upd[ch * (long long)ecap + e0 + j] = u;
-      coords[ch * (long long)E + e0 + j] = crd[ch * bs + j] + u;
-    }
+  for (int ch = 0; ch < NC; ++ch) {
+    const double s = NC == 1 ? acc[0] : acc[2 * ch] + acc[2 * ch + 1];
+    const double u = s * rc;
+    upd[ch * (long long)ecap + e] = u;
+    coords[ch * (long long)E + e] = coords[ch * (long long)E + e] + u;
   }
 }
 
@@ -255,18 +203,12 @@ strata_merge_bcast_blocked_kernel(float* __restrict__ drift, float* __restrict__
 
 template <int NC>
 int launch_sum(const void* drift, long long L, const void* csr_off, const void* csr_slot,
-               const void* recip, void* coords, void* upd, int E, int ecap,
-               const void* sched_tile, const void* blk_off, int nb, int bs,
+               const void* recip, void* coords, void* upd, int E, int ecap, int nb, int bs,
                cudaStream_t stream) {
-  const size_t smem = sum_smem_bytes<NC>(bs);
-  cudaError_t err = cudaFuncSetAttribute(strata_merge_sum_blocked_kernel<NC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  strata_merge_sum_blocked_kernel<NC><<<nb, SUM_THREADS, smem, stream>>>(
-      (const float*)drift, L, (const int*)csr_off, (const int*)csr_slot,
-      (const double*)recip, (double*)coords, (double*)upd, E, ecap,
-      (const int*)sched_tile, (const int*)blk_off, bs);
+  const int sub = std::min(bs, SUB_EPS), nsub = (bs + sub - 1) / sub;
+  strata_merge_sum_blocked_kernel<NC><<<(unsigned)((long long)nb * nsub), sub, 0, stream>>>(
+      (const float*)drift, L, (const int*)csr_off, (const int*)csr_slot, (const double*)recip,
+      (double*)coords, (double*)upd, E, ecap, bs, sub, nsub);
   return (int)cudaGetLastError();
 }
 
@@ -291,21 +233,18 @@ int launch_bcast(void* drift, void* base, long long L, const void* ep, const voi
 
 extern "C" {
 
-// Shared memory the sum kernel needs for a block of bs endpoints.
-long long strata_merge_sum_blocked_smem(int nc, int bs) {
-  return nc == 1 ? (long long)sum_smem_bytes<1>(bs) : (long long)sum_smem_bytes<2>(bs);
-}
-
+// nb node blocks of bs endpoints (even), which cover the E endpoints.
 int strata_merge_sum_blocked(const void* drift, long long L, const void* csr_off,
                              const void* csr_slot, const void* recip, void* coords,
-                             void* upd, int E, int ecap, int nc, const void* sched_tile,
-                             const void* blk_off, int nb, int bs, void* stream) {
+                             void* upd, int E, int ecap, int nc, int nb, int bs,
+                             void* stream) {
+  if (bs < 2 || bs % 2 != 0 || nb < 1 || (long long)nb * bs < E)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
   if (nc == 1)
-    return launch_sum<1>(drift, L, csr_off, csr_slot, recip, coords, upd, E, ecap,
-                         sched_tile, blk_off, nb, bs, (cudaStream_t)stream);
+    return launch_sum<1>(drift, L, csr_off, csr_slot, recip, coords, upd, E, ecap, nb, bs, st);
   if (nc == 2)
-    return launch_sum<2>(drift, L, csr_off, csr_slot, recip, coords, upd, E, ecap,
-                         sched_tile, blk_off, nb, bs, (cudaStream_t)stream);
+    return launch_sum<2>(drift, L, csr_off, csr_slot, recip, coords, upd, E, ecap, nb, bs, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,5 +1,7 @@
 // Definitions shared by the strata PG-SGD kernels (strata_sgd.cu,
-// strata_stream.cu, strata_blocked.cu, strata_levels.cu).
+// strata_stream.cu, strata_blocked.cu, strata_levels.cu): the coin hash and
+// the bodies of one 2D and one 1D chunk, which the chain kernels and the
+// leveled kernels both run.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -92,6 +94,55 @@ __device__ __forceinline__ void chunk_2d(float* drift, const float* __restrict__
   for (int k = 0; k < PPT; ++k) {  // B adds, after the A adds
     drift[xb_i[k]] = drift[xb_i[k]] + rx[k];
     drift[xb_i[k] + 2 * L] = drift[xb_i[k] + 2 * L] + ry[k];
+  }
+}
+
+// One 1D chunk (the twin's _twin_chunks_1d body) run by a block of THREADS
+// threads, each owning CHUNK / THREADS pairs: one X plane, no coins; a pair
+// is valid only if also pos_a != pos_b, and its weight is 1/d; the A slot
+// subtracts rr and the B slot adds it.  Read phase, A adds, B adds, as
+// chunk_2d; a pair keeps two floats across the barriers (its B slot is
+// recomputed).
+template <int THREADS>
+__device__ __forceinline__ void chunk_1d(float* drift, const float* __restrict__ base,
+                                         const int* __restrict__ planes, long long L,
+                                         long long o, long long D, float lr) {
+  constexpr int PPT = CHUNK / THREADS;
+  const int tid = threadIdx.x;
+  const int* pos = planes;
+  const int* path = planes + 2 * L;
+
+  float da_old[PPT], rr[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const long long a = o + tid + k * THREADS;
+    const long long b = a + D;
+    const int di = pos[a] - pos[b];
+    const int path_a = path[a];
+    const bool valid = (path_a == path[b]) && (path_a >= 0) && (di != 0);
+    const float da = drift[a];
+    const float xa = base[a] + da;
+    const float xb = base[b] + drift[b];
+
+    const float term = (float)abs(di);
+    const float w = 1.0f / fmaxf(term, 1e-30f);
+    const float mu = fminf(lr * w, 1.0f);
+    float dx = xa - xb;
+    if (dx == 0.0f) dx = 1e-9f;
+    const float mag = fabsf(dx);
+    const float delta = mu * (mag - term) * 0.5f;
+    da_old[k] = da;
+    rr[k] = valid ? delta / mag * dx : 0.0f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < PPT; ++k)  // A adds
+    drift[o + tid + k * THREADS] = da_old[k] - rr[k];
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {  // B adds, after the A adds
+    const long long b = o + D + tid + k * THREADS;
+    drift[b] = drift[b] + rr[k];
   }
 }
 

@@ -25,11 +25,9 @@
 
 namespace {
 
-using strata::CHUNK;
 using strata::LANE;
 
 constexpr int CHUNK_THREADS = 1024;  // one block walks a merge group
-constexpr int PAIRS_PER_THREAD = CHUNK / CHUNK_THREADS;
 constexpr int MERGE_THREADS = 256;  // the broadcast
 constexpr int SUM_THREADS = 256;
 constexpr int SUM_TILE = 4096;  // CSR entries a block stages at once
@@ -76,17 +74,16 @@ strata_chunks_2d_kernel(float* drift, const float* __restrict__ base,
 
 // ---------------------------------------------------------------------------
 // strata_chunks_1d: the chunk phase of _make_kernel_1d (twin: _twin_chunks_1d).
-// One X plane, no coins; valid also needs pos_a != pos_b; w = 1/d; the A
-// slot subtracts rr and the B slot adds it.  Bound and design as for 2D.
+// Bound and design as for 2D; the main path runs strata_chunks_1d_levels
+// (strata_levels.cu) instead, and this chain stays as its reference.
+//
+// Semantics: strata::chunk_1d (strata_common.cuh), chunk after chunk.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(CHUNK_THREADS, 1)
 strata_chunks_1d_kernel(float* drift, const float* __restrict__ base,
                         const int* __restrict__ planes, long long L,
                         const int* __restrict__ od, const float* __restrict__ eta,
                         int cpi, int g0, int cgs) {
-  const int tid = threadIdx.x;
-  const int* pos = planes;
-  const int* path = planes + 2 * L;
   int o_next = od[2 * g0];
   int d_next = od[2 * g0 + 1];
   for (int c = 0; c < cgs; ++c) {
@@ -97,41 +94,8 @@ strata_chunks_1d_kernel(float* drift, const float* __restrict__ base,
       o_next = od[2 * (gl + 1)];
       d_next = od[2 * (gl + 1) + 1];
     }
-    const float lr = eta[gl / cpi];
-
-    long long b_i[PAIRS_PER_THREAD];
-    float da_old[PAIRS_PER_THREAD], rr[PAIRS_PER_THREAD];
-#pragma unroll
-    for (int k = 0; k < PAIRS_PER_THREAD; ++k) {
-      const long long a = o + tid + k * CHUNK_THREADS;
-      const long long b = a + D;
-      const int di = pos[a] - pos[b];
-      const int path_a = path[a];
-      const bool valid = (path_a == path[b]) && (path_a >= 0) && (di != 0);
-      const float da = drift[a];
-      const float xa = base[a] + da;
-      const float xb = base[b] + drift[b];
-
-      const float term = (float)abs(di);
-      const float w = 1.0f / fmaxf(term, 1e-30f);
-      const float mu = fminf(lr * w, 1.0f);
-      float dx = xa - xb;
-      if (dx == 0.0f) dx = 1e-9f;
-      const float mag = fabsf(dx);
-      const float delta = mu * (mag - term) * 0.5f;
-      b_i[k] = b;
-      da_old[k] = da;
-      rr[k] = valid ? delta / mag * dx : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < PAIRS_PER_THREAD; ++k)  // A adds
-      drift[o + tid + k * CHUNK_THREADS] = da_old[k] - rr[k];
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < PAIRS_PER_THREAD; ++k)  // B adds
-      drift[b_i[k]] = drift[b_i[k]] + rr[k];
-    __syncthreads();
+    strata::chunk_1d<CHUNK_THREADS>(drift, base, planes, L, o, D, eta[gl / cpi]);
+    __syncthreads();  // the next chunk reads what this one wrote
   }
 }
 

@@ -10,7 +10,8 @@
 //     (pallas_sgd_xxl.py:632)
 // and give the same drift as strata_chunks_2d / strata_chunks_1d
 // (strata_sgd.cu), bit for bit: the same pair arithmetic in the same
-// order, built with -fmad=false.
+// order, built with -fmad=false.  The main path runs the leveled kernels of
+// strata_levels.cu instead; these chains stay as their reference.
 //
 // What the TPU kernel does and what is kept.  The TPU kernel DMAs each
 // chunk's windows from HBM into VMEM and double-buffers them: chunk c+1's

@@ -21,11 +21,14 @@ strata_merge_sum_blocked            pallas_sgd_xxl.py scatter pass
 strata_merge_bcast_blocked          pallas_sgd_xxl.py broadcast + zeroing passes
 strata_chunks_2d_levels             pallas_sgd.py _chunk_2d and the 2D chunk
   (strata_levels.cu)                  phases of _make_kernel_xl / _xxl
+strata_chunks_1d_levels             pallas_sgd.py _chunk_1d and the 1D chunk
+  (strata_levels.cu)                  phases of _make_kernel_xl_1d / _xxl_1d
 The XL route's merge is strata_merge_sum / strata_merge_bcast, which have
 no node-width cap (the counterpart of XL's streamed full-width merge).
-The 2D chunk phase of every route is strata_chunks_2d_levels; the chain
-kernels strata_chunks_2d / _2d_stream compute the same drift and stay as
-its reference, off the main path.
+The chunk phase of every route is strata_chunks_2d_levels /
+strata_chunks_1d_levels; the chain kernels strata_chunks_2d / _1d and
+their stream twins compute the same drift and stay as their reference,
+off the main path.
 """
 
 from __future__ import annotations
@@ -60,12 +63,14 @@ SIGNATURES = {
     "strata_merge_bcast": [P, P, LL, P, P, I, I, P],
     "strata_chunks_2d_stream": _STREAM_ARGS,
     "strata_chunks_1d_stream": _STREAM_ARGS,
-    "strata_merge_sum_blocked": [P, LL, P, P, P, P, P, I, I, I, P, P, I, I, P],
+    "strata_merge_sum_blocked": [P, LL, P, P, P, P, P, I, I, I, I, I, P],
     "strata_merge_bcast_blocked": [P, P, LL, P, P, I, I, I, P, P, I, I, LL, P],
     "strata_chunks_2d_levels": [P, P, P, LL, P, P, I, P, P, I, P, P],
+    "strata_chunks_1d_levels": [P, P, P, LL, P, P, I, P, P, I, P, P],
 }
 NAMES = tuple(SIGNATURES)
-# Shared memory a thread block may use on sm_90 (the blocked sum checks it).
+# Shared memory a thread block may use on sm_90: the blocked broadcast
+# stages a node block's update there, which bounds a schedule's block size.
 MAX_SMEM_BYTES = 232_448
 
 LAUNCHES = {name: 0 for name in NAMES}
@@ -145,14 +150,11 @@ def _fn(name: str):
                     fn.argtypes = argtypes
                     fn.restype = I
                     _fns[n] = fn
-            if hasattr(lib, "strata_merge_sum_blocked_smem"):
-                lib.strata_merge_sum_blocked_smem.argtypes = [I, I]
-                lib.strata_merge_sum_blocked_smem.restype = LL
-                _fns["strata_merge_sum_blocked_smem"] = lib.strata_merge_sum_blocked_smem
-            if hasattr(lib, "strata_chunks_2d_levels_blocks"):
-                lib.strata_chunks_2d_levels_blocks.argtypes = []
-                lib.strata_chunks_2d_levels_blocks.restype = I
-                _fns["strata_chunks_2d_levels_blocks"] = lib.strata_chunks_2d_levels_blocks
+            if hasattr(lib, "strata_chunks_levels_blocks"):
+                fn = lib.strata_chunks_levels_blocks
+                fn.argtypes = [I]
+                fn.restype = I
+                _fns["strata_chunks_levels_blocks"] = fn
     return _fns[name]
 
 
@@ -215,14 +217,14 @@ def _chunks(name: str, nplanes: int, drift, base, planes, od, eta, cpi, g0, cgs,
 
 
 def strata_chunks_2d(drift, base, planes, od, eta, cpi: int, g0: int, cgs: int):
-    """Chunk phase of one 2D merge group, in place on `drift`."""
+    """Chunk phase of one 2D merge group as a chain, in place on `drift`."""
     if drift.device.type == "cpu":
         return strata_sgd.chunks_2d_plain(drift, base, planes, od, eta, cpi, g0, cgs)
     _chunks("strata_chunks_2d", 4, drift, base, planes, od, eta, cpi, g0, cgs)
 
 
 def strata_chunks_1d(drift, base, planes, od, eta, cpi: int, g0: int, cgs: int):
-    """Chunk phase of one 1D merge group, in place on `drift`."""
+    """Chunk phase of one 1D merge group as a chain, in place on `drift`."""
     if drift.device.type == "cpu":
         return strata_sgd.chunks_1d_plain(drift, base, planes, od, eta, cpi, g0, cgs)
     _chunks("strata_chunks_1d", 3, drift, base, planes, od, eta, cpi, g0, cgs)
@@ -265,18 +267,40 @@ def strata_merge_bcast(drift, base, mi, upd):
 
 
 def strata_chunks_2d_stream(drift, base, planes, od, sync, eta, cpi: int, g0: int, cgs: int):
-    """Chunk phase of one 2D merge group on the XL / XXL routes, in place on
-    `drift`; `sync` (chunks,) i32 gates the next chunk's drift prefetch.
-    Same result as `strata_chunks_2d`."""
+    """The chain of `strata_chunks_2d` as the XL / XXL TPU kernels run it,
+    in place on `drift`; `sync` (chunks,) i32 (``strata_xl.sync_flags``)
+    gates the next chunk's drift prefetch.  Same result."""
     if drift.device.type == "cpu":
         return strata_sgd.chunks_2d_plain(drift, base, planes, od, eta, cpi, g0, cgs)
     _chunks("strata_chunks_2d_stream", 4, drift, base, planes, od, eta, cpi, g0, cgs, sync)
 
 
 # One scratch word a device: the grid barrier's counter of the leveled
-# kernel.  It starts at 0 and every completed launch leaves its low 31 bits
+# kernels.  It starts at 0 and every completed launch leaves its low 31 bits
 # at 0, so launches on one stream share it.
 _BARRIER: dict = {}
+
+
+def _levels(name: str, nplanes: int, drift, base, planes, od, eta, cpi, perm, lvl_off) -> None:
+    _check(dict(drift=drift, base=base, planes=planes, od=od, eta=eta, perm=perm,
+                lvl_off=lvl_off), drift.device)
+    L = drift.shape[1]
+    _require(drift.shape == base.shape and drift.shape[0] == (4 if nplanes == 4 else 1),
+             "drift/base shape")
+    _require(planes.shape == (nplanes, L), "planes shape")
+    _require(od.dim() == 2 and od.shape[1] == 2, "od shape")
+    _require(perm.shape == (od.shape[0],), "perm has one entry a chunk")
+    _require(lvl_off.dim() == 1 and 2 <= lvl_off.shape[0] <= od.shape[0] + 1,
+             "lvl_off holds 1 to chunks levels")
+    _require(cpi > 0 and (od.shape[0] - 1) // cpi < eta.shape[0], "eta covers the chunks")
+    counter = _BARRIER.get(drift.device)
+    if counter is None:
+        counter = _BARRIER[drift.device] = torch.zeros(1, dtype=torch.int32,
+                                                       device=drift.device)
+    err = _fn(name)(
+        _ptr(drift), _ptr(base), _ptr(planes), L, _ptr(od), _ptr(eta), int(cpi), _ptr(perm),
+        _ptr(lvl_off), int(lvl_off.shape[0] - 1), _ptr(counter), _stream(drift.device))
+    _launched(name, err)
 
 
 def strata_chunks_2d_levels(drift, base, planes, od, eta, cpi: int, perm, lvl_off):
@@ -288,33 +312,28 @@ def strata_chunks_2d_levels(drift, base, planes, od, eta, cpi: int, perm, lvl_of
     if drift.device.type == "cpu":
         return strata_sgd.chunks_2d_levels_plain(drift, base, planes, od, eta, cpi, perm,
                                                  lvl_off)
-    _check(dict(drift=drift, base=base, planes=planes, od=od, eta=eta, perm=perm,
-                lvl_off=lvl_off), drift.device)
-    L = drift.shape[1]
-    _require(drift.shape == base.shape and drift.shape[0] == 4, "drift/base shape")
-    _require(planes.shape == (4, L), "planes shape")
-    _require(od.dim() == 2 and od.shape[1] == 2, "od shape")
-    _require(perm.shape == (od.shape[0],), "perm has one entry a chunk")
-    _require(lvl_off.dim() == 1 and 2 <= lvl_off.shape[0] <= od.shape[0] + 1,
-             "lvl_off holds 1 to chunks levels")
-    _require(cpi > 0 and (od.shape[0] - 1) // cpi < eta.shape[0], "eta covers the chunks")
-    counter = _BARRIER.get(drift.device)
-    if counter is None:
-        counter = _BARRIER[drift.device] = torch.zeros(1, dtype=torch.int32,
-                                                       device=drift.device)
-    err = _fn("strata_chunks_2d_levels")(
-        _ptr(drift), _ptr(base), _ptr(planes), L, _ptr(od), _ptr(eta), int(cpi), _ptr(perm),
-        _ptr(lvl_off), int(lvl_off.shape[0] - 1), _ptr(counter), _stream(drift.device))
-    _launched("strata_chunks_2d_levels", err)
+    _levels("strata_chunks_2d_levels", 4, drift, base, planes, od, eta, cpi, perm, lvl_off)
 
 
-def levels_grid_blocks() -> int:
-    """Blocks of the leveled kernel's persistent grid on the current card."""
-    return int(_fn("strata_chunks_2d_levels_blocks")())
+def strata_chunks_1d_levels(drift, base, planes, od, eta, cpi: int, perm, lvl_off):
+    """Chunk phase of one 1D merge group by conflict levels, in place on
+    `drift`, as `strata_chunks_2d_levels`.  Same result as
+    `strata_chunks_1d`."""
+    if drift.device.type == "cpu":
+        return strata_sgd.chunks_1d_levels_plain(drift, base, planes, od, eta, cpi, perm,
+                                                 lvl_off)
+    _levels("strata_chunks_1d_levels", 3, drift, base, planes, od, eta, cpi, perm, lvl_off)
+
+
+def levels_grid_blocks(one_d: bool = False) -> int:
+    """Blocks of the persistent grid of the 2D (or 1D) leveled kernel on
+    the current card."""
+    return int(_fn("strata_chunks_levels_blocks")(int(bool(one_d))))
 
 
 def strata_chunks_1d_stream(drift, base, planes, od, sync, eta, cpi: int, g0: int, cgs: int):
-    """Chunk phase of one 1D merge group on the XL / XXL routes."""
+    """The chain of `strata_chunks_1d` as the XL / XXL TPU kernels run it,
+    gated as `strata_chunks_2d_stream`.  Same result."""
     if drift.device.type == "cpu":
         return strata_sgd.chunks_1d_plain(drift, base, planes, od, eta, cpi, g0, cgs)
     _chunks("strata_chunks_1d_stream", 3, drift, base, planes, od, eta, cpi, g0, cgs, sync)
@@ -329,11 +348,14 @@ def _check_schedule(drift, mi, bsch, nc: int, E: int) -> None:
     _require(0 < bsch.num_steps <= drift.shape[1] and mi.ep.shape == (drift.shape[1],),
              "step count within the planes")
     _require(drift.shape[1] % strata_sgd.TILE == 0, "planes are whole tiles")
+    _require(nc * bsch.bs * 4 <= MAX_SMEM_BYTES, "a block's update fits shared memory")
 
 
 def strata_merge_sum_blocked(drift, mi, bsch, coords, upd):
     """Consensus sums of the XXL route: the result of `strata_merge_sum`,
-    one thread block per node block of the schedule `bsch`."""
+    node block by node block of the schedule `bsch`, each gathering its
+    slots' drift over its span of the CSR (the schedule's tiles are not
+    read: a fold in CSR order reads each slot directly)."""
     if drift.device.type == "cpu":
         return strata_sgd.merge_sum_blocked_plain(drift, mi, bsch, coords, upd)
     _check(dict(drift=drift, csr_off=mi.csr_off, csr_slot=mi.csr_slot,
@@ -344,12 +366,10 @@ def strata_merge_sum_blocked(drift, mi, bsch, coords, upd):
     _require(upd.shape == (nc, mi.ecap) and mi.csr_off.shape == (E + 1,)
              and mi.recip.shape == (E,), "merge index shapes")
     _check_schedule(drift, mi, bsch, nc, E)
-    _require(_fn("strata_merge_sum_blocked_smem")(nc, bsch.bs) <= MAX_SMEM_BYTES,
-             f"block size {bsch.bs} needs more shared memory than a block has")
     err = _fn("strata_merge_sum_blocked")(
         _ptr(drift), L, _ptr(mi.csr_off), _ptr(mi.csr_slot), _ptr(mi.recip),
-        _ptr(coords), _ptr(upd), int(E), int(mi.ecap), int(nc), _ptr(bsch.tile),
-        _ptr(bsch.blk_off), int(bsch.num_blocks), int(bsch.bs), _stream(drift.device))
+        _ptr(coords), _ptr(upd), int(E), int(mi.ecap), int(nc), int(bsch.num_blocks),
+        int(bsch.bs), _stream(drift.device))
     _launched("strata_merge_sum_blocked", err)
 
 
@@ -365,7 +385,6 @@ def strata_merge_bcast_blocked(drift, base, mi, bsch, upd):
     _require(base.shape == drift.shape and drift.shape[0] == (4 if nc == 2 else 1)
              and upd.shape == (nc, mi.ecap), "broadcast shapes")
     _check_schedule(drift, mi, bsch, nc, E)
-    _require(nc * bsch.bs * 4 <= MAX_SMEM_BYTES, "block update fits shared memory")
     err = _fn("strata_merge_bcast_blocked")(
         _ptr(drift), _ptr(base), L, _ptr(mi.ep), _ptr(upd), int(E), int(mi.ecap),
         int(nc), _ptr(bsch.tile), _ptr(bsch.block), int(bsch.num_entries),

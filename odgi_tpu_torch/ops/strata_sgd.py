@@ -14,18 +14,19 @@ step count), add into the f64 node coordinates, broadcast the update into
 A run takes one of three routes (``ops/strata_route.py``), the
 counterparts of the JAX package's three kernel families.  All three compute
 the same function, bit for bit:
-- ``"resident"`` (``_make_kernel_1d/2d``): the chunk kernels and the CSR
-  merge;
-- ``"xl"`` (``_make_kernel_xl/_xl_1d``): the stream chunk kernels, which
-  prefetch the next chunk while one runs (gated by the sync flags of
-  ``ops/strata_xl.py``), and the CSR merge;
+- ``"resident"`` (``_make_kernel_1d/2d``): the CSR merge;
+- ``"xl"`` (``_make_kernel_xl/_xl_1d``): the CSR merge too, which has no
+  node cap;
 - ``"xxl"`` (``_make_kernel_xxl/_xxl_1d``): nodes relabeled by first visit
-  (``ops/strata_xxl.py``), the stream chunk kernels, and the blocked merges
-  that walk the (block, tile) schedule; coordinates are relabeled back at
-  the end.
-On every route the 2D chunk phase runs by conflict levels
-(``ops/strata_levels.py``, ``strata_chunks_2d_levels``), which gives the
-chain kernels' drift bit for bit; they stay as its reference.
+  (``ops/strata_xxl.py``) and the blocked merges: a sum over the node
+  blocks' CSR spans and a broadcast that walks the (block, tile)
+  schedule; coordinates are relabeled back at the end.
+On every route the chunk phase runs by conflict levels
+(``ops/strata_levels.py``, ``strata_chunks_2d_levels`` /
+``strata_chunks_1d_levels``), which gives the drift of the chain kernels
+(``strata_chunks_2d/1d`` and the stream kernels, which prefetch the next
+chunk as gated by the sync flags of ``ops/strata_xl.py``) bit for bit; the
+chain kernels stay as its reference, off the main path.
 
 Each phase has a plain PyTorch version here and a CUDA kernel behind the
 wrappers of ``ops/kernels.py``; the runs call the wrappers, which take
@@ -43,7 +44,6 @@ import torch
 from . import kernels, strata_levels
 from .strata_plan import CHUNK, LANE, P1_PATH, P1_POS, PATH, POS, POSEND, plan_run
 from .strata_route import ROUTES, graph_route
-from .strata_xl import sync_flags
 from .strata_xxl import TILE, BlockSchedule, relabel, relabel_coords, unrelabel
 
 _M32 = 0xFFFFFFFF
@@ -153,35 +153,49 @@ def chunks_2d_levels_plain(drift, base, planes, od, eta, cpi: int, perm, lvl_off
                   eta[gl // cpi], gl)
 
 
+def _chunk_1d(drift, base, planes, o: int, D: int, lr) -> None:
+    """One 1D chunk, window start slot `o` and jump `D`, in place on
+    `drift`: no coins; a pair is valid only if also pos_a != pos_b, and its
+    weight is 1/d; the A slot subtracts rr, then the B slot adds it."""
+    pos, path = planes[P1_POS], planes[P1_PATH]
+    d0, b0 = drift[0], base[0]
+    A = slice(o, o + CHUNK)
+    B = slice(o + D, o + D + CHUNK)
+    xa = b0[A] + d0[A]
+    xb = b0[B] + d0[B]
+    di = pos[A] - pos[B]
+    valid = (path[A] == path[B]) & (path[A] >= 0) & (di != 0)
+    term = di.abs().to(torch.float32)
+    w = torch.ones_like(term) / torch.clamp_min(term, 1e-30)
+    mu = torch.clamp_max(lr * w, 1.0)
+    dx = xa - xb
+    dx = torch.where(dx == 0.0, 1e-9, dx)
+    mag = dx.abs()
+    delta = mu * (mag - term) * 0.5
+    rr = torch.where(valid, delta / mag * dx, 0.0)
+    d0[A] -= rr
+    d0[B] += rr
+
+
 def chunks_1d_plain(drift, base, planes, od, eta, cpi: int, g0: int, cgs: int):
     """Chunks g0..g0+cgs-1 of the 1D scheme, in place on `drift` (1, L) f32.
 
-    planes (3, L) i32 [pos, handle, path].  No coins; a pair is valid only
-    if also pos_a != pos_b, and its weight is 1/d."""
+    planes (3, L) i32 [pos, handle, path]; od, eta as `chunks_2d_plain`."""
     od_h = od.cpu().numpy()
-    pos, path = planes[P1_POS], planes[P1_PATH]
-    d0, b0 = drift[0], base[0]
-    for c in range(cgs):
-        gl = g0 + c
-        o = int(od_h[gl, 0]) * LANE
-        D = int(od_h[gl, 1])
-        A = slice(o, o + CHUNK)
-        B = slice(o + D, o + D + CHUNK)
-        lr = eta[gl // cpi]
-        xa = b0[A] + d0[A]
-        xb = b0[B] + d0[B]
-        di = pos[A] - pos[B]
-        valid = (path[A] == path[B]) & (path[A] >= 0) & (di != 0)
-        term = di.abs().to(torch.float32)
-        w = torch.ones_like(term) / torch.clamp_min(term, 1e-30)
-        mu = torch.clamp_max(lr * w, 1.0)
-        dx = xa - xb
-        dx = torch.where(dx == 0.0, 1e-9, dx)
-        mag = dx.abs()
-        delta = mu * (mag - term) * 0.5
-        rr = torch.where(valid, delta / mag * dx, 0.0)
-        d0[A] -= rr
-        d0[B] += rr
+    for gl in range(g0, g0 + cgs):
+        _chunk_1d(drift, base, planes, int(od_h[gl, 0]) * LANE, int(od_h[gl, 1]),
+                  eta[gl // cpi])
+
+
+def chunks_1d_levels_plain(drift, base, planes, od, eta, cpi: int, perm, lvl_off):
+    """`chunks_2d_levels_plain` for the 1D scheme: the chunks
+    perm[lvl_off[0]:lvl_off[-1]] in that order, the body of
+    `chunks_1d_plain`."""
+    od_h = od.cpu().numpy()
+    off = lvl_off.cpu().numpy()
+    for gl in perm[int(off[0]):int(off[-1])].cpu().tolist():
+        _chunk_1d(drift, base, planes, int(od_h[gl, 0]) * LANE, int(od_h[gl, 1]),
+                  eta[gl // cpi])
 
 
 def merge_sum_plain(drift, mi: "MergeIndex", coords, upd):
@@ -259,23 +273,26 @@ def _block_entries(mi: "MergeIndex", bsch: BlockSchedule):
 
 
 def merge_sum_blocked_plain(drift, mi: "MergeIndex", bsch: BlockSchedule, coords, upd):
-    """`merge_sum_plain`, walking the (block, tile) schedule entry by entry.
-
-    Each endpoint's slots arrive in ascending order (a block's entries are
-    in ascending tile order), so the f64 sums equal `merge_sum_plain`'s
-    exactly; a slot the schedule misses drops out of its sum."""
+    """`merge_sum_plain`, node block by node block of the schedule `bsch`,
+    each over its span of the CSR (a block's endpoints own a contiguous run
+    of it).  Each endpoint's slots arrive in ascending order, so the f64
+    sums equal `merge_sum_plain`'s exactly.  As `strata_merge_sum_blocked`,
+    it reads the slots, not the schedule's tiles."""
     nc, E = coords.shape
     dv = drift.to(torch.float64)
+    off = mi.csr_off.tolist()
     acc_f = torch.zeros((nc, mi.ecap), dtype=torch.float64, device=drift.device)
     acc_r = torch.zeros_like(acc_f)
-    for sl, m in _block_entries(mi, bsch):
-        idx = mi.ep[sl][m]
+    for b in range(bsch.num_blocks):
+        lo, hi = min(b * bsch.bs, E), min((b + 1) * bsch.bs, E)
+        sl = mi.csr_slot[off[lo]:off[hi]].to(torch.int64)
+        idx = mi.ep[sl]
         if nc == 1:
-            acc_f[0].index_add_(0, idx, dv[0, sl][m])
+            acc_f[0].index_add_(0, idx, dv[0, sl])
             continue
         for ch in range(nc):
-            acc_f[ch].index_add_(0, idx, dv[2 * ch, sl][m])
-            acc_r[ch].index_add_(0, idx ^ 1, dv[2 * ch + 1, sl][m])
+            acc_f[ch].index_add_(0, idx, dv[2 * ch, sl])
+            acc_r[ch].index_add_(0, idx ^ 1, dv[2 * ch + 1, sl])
     for ch in range(nc):
         acc = acc_f[ch] if nc == 1 else acc_f[ch] + acc_r[ch]
         u = acc[:E] * mi.recip
@@ -388,10 +405,9 @@ class StrataState:
     mi: MergeIndex
     coords: torch.Tensor   # f64 (2 or 1, E) node coordinates
     upd: torch.Tensor      # f64 (2 or 1, E_cap) last merge's update
+    perm: torch.Tensor     # i32 (chunks,) the chunks by (group, level, index)
+    lvl_rows: list         # each group's i32 level offsets into perm
     route: str = "resident"
-    sync: Optional[torch.Tensor] = None   # i32 (chunks,) "xl", "xxl"
-    perm: Optional[torch.Tensor] = None   # i32 (chunks,) 2D: chunks by level
-    lvl_rows: Optional[list] = None       # 2D: each group's i32 level offsets
     bsch: Optional[BlockSchedule] = None  # "xxl"
     order: Optional[np.ndarray] = None    # "xxl": relabel order
 
@@ -432,11 +448,8 @@ class StrataState:
         od = np.stack([p["o_blk"], p["d_arr"]], axis=1).astype(np.int32)
         t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
         base_t = t(base, torch.float32)
-        perm = lvl_rows = None
-        if not one_d:
-            perm_h, lvl_off = strata_levels.chunk_levels(p)
-            perm, off_t = t(perm_h, torch.int32), t(lvl_off, torch.int32)
-            lvl_rows = [off_t[gid, :n + 1] for gid, n in enumerate(strata_levels.depths(lvl_off))]
+        perm_h, lvl_off = strata_levels.chunk_levels(p)
+        off_t = t(lvl_off, torch.int32)
         return StrataState(
             plan=p,
             one_d=one_d,
@@ -448,28 +461,19 @@ class StrataState:
             mi=mi,
             coords=t(coords, torch.float64),
             upd=torch.zeros((coords.shape[0], mi.ecap), dtype=torch.float64, device=device),
+            perm=t(perm_h, torch.int32),
+            lvl_rows=[off_t[gid, :n + 1] for gid, n in enumerate(strata_levels.depths(lvl_off))],
             route=route,
-            sync=None if route == "resident" else t(sync_flags(p), torch.int32),
-            perm=perm,
-            lvl_rows=lvl_rows,
             bsch=BlockSchedule.build(g, one_d, device) if route == "xxl" else None,
             order=order,
         )
 
     def run_group(self, gid: int) -> None:
-        """One merge group: the chunk phase, then the consensus merge.  2D
-        runs its chunks by conflict levels on every route; 1D runs the
-        route's chain kernel."""
-        p = self.plan
-        args = (self.drift, self.base, self.planes, self.od)
-        tail = (self.eta, p["cpi"], gid * p["cgs"], p["cgs"])
-        if not self.one_d:
-            kernels.strata_chunks_2d_levels(*args, self.eta, p["cpi"], self.perm,
-                                            self.lvl_rows[gid])
-        elif self.route == "resident":
-            kernels.strata_chunks_1d(*args, *tail)
-        else:
-            kernels.strata_chunks_1d_stream(*args, self.sync, *tail)
+        """One merge group: the chunk phase by conflict levels, then the
+        route's consensus merge."""
+        chunks = kernels.strata_chunks_1d_levels if self.one_d else kernels.strata_chunks_2d_levels
+        chunks(self.drift, self.base, self.planes, self.od, self.eta, self.plan["cpi"],
+               self.perm, self.lvl_rows[gid])
         if self.route == "xxl":
             kernels.strata_merge_sum_blocked(self.drift, self.mi, self.bsch,
                                              self.coords, self.upd)

@@ -5,8 +5,9 @@ The counterpart of the host half of ``odgi_tpu/ops/pallas_sgd_xxl.py``
 (``_locality_order``, the relabel in ``path_sgd_2d_pallas_xxl`` /
 ``path_sgd_1d_pallas_xxl``, ``_block_geometry``, ``_build_schedule``).  The
 blocked merge kernels (``csrc/strata_blocked.cu``) split the endpoints into
-blocks of ``XXL_BS`` and walk, per block, the step tiles (TR*LANE slots)
-that hold one of its endpoints.  Relabeling nodes by first visit along the
+blocks of ``XXL_BS``; the broadcast walks, per block, the step tiles
+(TR*LANE slots) that hold one of its endpoints, and the sum folds each
+block's span of the merge CSR.  Relabeling nodes by first visit along the
 step table keeps a block's slots in few tiles whatever the input ids were.
 """
 
@@ -19,12 +20,10 @@ import torch
 
 from .strata_plan import LANE, TR, _pad_to
 
-# Endpoints per node block.  The 2D sum kernel keeps, per block, four f64
-# accumulators, 1/R, two f64 coordinates and a three-int cursor per
-# endpoint (68 B) plus one staged 4-plane f32 tile (64 KB) in shared
-# memory: 2048 endpoints take 200 KB of the 227 KB a block may use, 4096
-# would take 336 KB.  (The TPU kernel's blocks hold 32,768.)  Tests
-# shrink it.
+# Endpoints per node block.  The broadcast kernel runs a thread block per
+# schedule entry and stages the block's f32 update in shared memory (2D:
+# 16 KB at 2048); larger blocks mean fewer entries but more to stage for
+# each.  (The TPU kernel's blocks hold 32,768.)  Tests shrink it.
 XXL_BS = 2048
 # Slots per merge tile.
 TILE = TR * LANE

@@ -8,9 +8,10 @@ and division, so they round as the plain versions do; max |drift delta|
 over the scale <= 1e-6 (bit-equality expected).  The merge sums are f64 in
 ascending slot order, while the plain version's CUDA index_add_ adds in no
 fixed order: <= 1e-12 of the scale.  The stream and blocked kernels of the
-XL and XXL routes equal the resident kernels exactly.  The leveled 2D chunk
-kernel equals the chain kernels exactly, and strata_merge_sum equals the
-ascending-order loop merge_sum_ordered_plain exactly, at every block size.
+XL and XXL routes equal the resident kernels exactly.  The leveled 2D and
+1D chunk kernels equal the chain kernels exactly, strata_merge_sum equals
+the ascending-order loop merge_sum_ordered_plain exactly at every block
+size, and the blocked sum equals it too, at every node-block size.
 """
 
 import dataclasses
@@ -96,6 +97,11 @@ def _state(graph, one_d, device, route="resident"):
         graph, sgd.derive_config_2d(graph, **kw), init_layout(graph), False, device, route)
 
 
+def _sync(st):
+    """The sync flags of the stream chain kernels for the state's plan."""
+    return torch.as_tensor(strata_xl.sync_flags(st.plan), device=st.od.device)
+
+
 def _chunk_kernels(one_d):
     if one_d:
         return kernels.strata_chunks_1d_stream, kernels.strata_chunks_1d, strata_sgd.chunks_1d_plain
@@ -169,12 +175,13 @@ def test_stream_kernels_equal_resident_all_synced(cuda, graph, one_d):
     st = _state(graph, one_d, cuda, "xl")
     p = st.plan
     stream, resident, _ = _chunk_kernels(one_d)
-    ones = torch.ones_like(st.sync)
+    sync = _sync(st)
+    ones = torch.ones_like(sync)
     for gid in range(p["groups"]):
         tail = (st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
         d_s, d_r, d_f = st.drift.clone(), st.drift.clone(), st.drift.clone()
         stream(d_s, st.base, st.planes, st.od, ones, *tail)
-        stream(d_f, st.base, st.planes, st.od, st.sync, *tail)
+        stream(d_f, st.base, st.planes, st.od, sync, *tail)
         resident(d_r, st.base, st.planes, st.od, *tail)
         torch.cuda.synchronize()
         assert torch.equal(d_s, d_r) and torch.equal(d_f, d_r)
@@ -258,9 +265,12 @@ def test_routes_equal_on_card(cuda, wide_graph, one_d, monkeypatch):
         np.testing.assert_array_equal(run(route, cuda), res)
     on_cpu = run("resident", "cpu")
     assert np.abs(res - on_cpu).max() / (np.abs(on_cpu).max() + 1) <= CHUNK_TOL
-    for n in ("strata_chunks_1d_stream" if one_d else "strata_chunks_2d_levels",
+    for n in ("strata_chunks_1d_levels" if one_d else "strata_chunks_2d_levels",
               "strata_merge_sum_blocked", "strata_merge_bcast_blocked"):
         assert kernels.LAUNCHES[n] > before[n]
+    for n in ("strata_chunks_1d", "strata_chunks_1d_stream", "strata_chunks_2d",
+              "strata_chunks_2d_stream"):
+        assert kernels.LAUNCHES[n] == before[n]
 
 
 def test_new_wrappers_reject_bad_arguments(cuda, wide_graph):
@@ -268,11 +278,12 @@ def test_new_wrappers_reject_bad_arguments(cuda, wide_graph):
     p = st.plan
     tail = (st.eta, p["cpi"], 0, p["cgs"])
     chunks = kernels.strata_chunks_2d_stream
-    for bad_sync in (st.sync.cpu(), st.sync.long(), st.sync[:-1]):
+    sync = _sync(st)
+    for bad_sync in (sync.cpu(), sync.long(), sync[:-1]):
         with pytest.raises(ValueError):
             chunks(st.drift, st.base, st.planes, st.od, bad_sync, *tail)
     with pytest.raises(ValueError):
-        kernels.strata_chunks_1d_stream(st.drift, st.base, st.planes, st.od, st.sync, *tail)
+        kernels.strata_chunks_1d_stream(st.drift, st.base, st.planes, st.od, sync, *tail)
     bs = st.bsch
     for bad in (dataclasses.replace(bs, tile=bs.tile.cpu()),
                 dataclasses.replace(bs, tile=bs.tile.long()),
@@ -303,6 +314,7 @@ def test_leveled_chunks_equal_chain_groups(cuda, long_graph, route):
     p = st.plan
     depth = strata_levels.depths(strata_levels.chunk_levels(p)[1])
     assert depth.max() < p["cgs"]  # levels of more than one chunk
+    sync = _sync(st)
     before = dict(kernels.LAUNCHES)
     for gid in range(p["groups"]):
         tail = (st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
@@ -310,8 +322,8 @@ def test_leveled_chunks_equal_chain_groups(cuda, long_graph, route):
         kernels.strata_chunks_2d_levels(d_l, st.base, st.planes, st.od, st.eta, p["cpi"],
                                         st.perm, st.lvl_rows[gid])
         kernels.strata_chunks_2d(d_c, st.base, st.planes, st.od, *tail)
-        if st.sync is not None:
-            kernels.strata_chunks_2d_stream(d_s, st.base, st.planes, st.od, st.sync, *tail)
+        if route != "resident":
+            kernels.strata_chunks_2d_stream(d_s, st.base, st.planes, st.od, sync, *tail)
             torch.cuda.synchronize()
             assert torch.equal(d_s, d_c)
         torch.cuda.synchronize()
@@ -381,3 +393,109 @@ def test_levels_wrapper_rejects_bad_arguments(cuda, long_graph):
         with pytest.raises(ValueError):
             kernels.strata_merge_sum(st.drift, dataclasses.replace(st.mi, block_eps=bad),
                                      st.coords, st.upd)
+
+
+def _level_state_1d(graph, device, route):
+    """A 1D state with a few hundred chunks a group."""
+    cfg = sgd.derive_config_1d(graph, iter_max=2, min_term_updates=256 * 4096)
+    return strata_sgd.StrataState.build(graph, cfg, graph.node_offset.astype(np.float32),
+                                        True, device, route)
+
+
+@pytest.mark.parametrize("route", ["resident", "xl", "xxl"])
+def test_leveled_1d_chunks_equal_chain_groups(cuda, long_graph, route):
+    st = _level_state_1d(long_graph, cuda, route)
+    p = st.plan
+    depth = strata_levels.depths(strata_levels.chunk_levels(p)[1])
+    assert depth.max() < p["cgs"]  # levels of more than one chunk
+    sync = _sync(st)
+    before = dict(kernels.LAUNCHES)
+    for gid in range(p["groups"]):
+        tail = (st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
+        d_l, d_c, d_s = st.drift.clone(), st.drift.clone(), st.drift.clone()
+        kernels.strata_chunks_1d_levels(d_l, st.base, st.planes, st.od, st.eta, p["cpi"],
+                                        st.perm, st.lvl_rows[gid])
+        kernels.strata_chunks_1d(d_c, st.base, st.planes, st.od, *tail)
+        kernels.strata_chunks_1d_stream(d_s, st.base, st.planes, st.od, sync, *tail)
+        torch.cuda.synchronize()
+        assert torch.equal(d_l, d_c) and torch.equal(d_s, d_c)
+        assert float(d_c.abs().max()) > 0
+        st.drift = d_l
+        if route == "xxl":
+            kernels.strata_merge_sum_blocked(st.drift, st.mi, st.bsch, st.coords, st.upd)
+            kernels.strata_merge_bcast_blocked(st.drift, st.base, st.mi, st.bsch, st.upd)
+        else:
+            kernels.strata_merge_sum(st.drift, st.mi, st.coords, st.upd)
+            kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)
+    assert kernels.LAUNCHES["strata_chunks_1d_levels"] - before["strata_chunks_1d_levels"] \
+        == p["groups"]
+    assert kernels.levels_grid_blocks(one_d=True) >= torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+
+
+@pytest.mark.parametrize("route", ["resident", "xl", "xxl"])
+def test_leveled_1d_runs_equal_chain_runs(cuda, long_graph, route, monkeypatch):
+    """Whole 1D runs: the leveled kernel against the same run with the
+    chunk phase forced onto the chain kernel, bit for bit."""
+    cfg = sgd.derive_config_1d(long_graph, iter_max=3, min_term_updates=128 * 4096)
+    run = lambda: strata_sgd.path_sgd_1d_strata(long_graph, cfg, None, cuda,
+                                                route).cpu().numpy()
+    leveled = run()
+
+    def chain(drift, base, planes, od, eta, cpi, perm, lvl_off):
+        g0, g1 = int(lvl_off[0]), int(lvl_off[-1])
+        kernels.strata_chunks_1d(drift, base, planes, od, eta, cpi, g0, g1 - g0)
+
+    monkeypatch.setattr(kernels, "strata_chunks_1d_levels", chain)
+    np.testing.assert_array_equal(run(), leveled)
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+def test_blocked_sum_in_pieces(cuda, long_graph, one_d):
+    """Deep coverage, 36,000 steps over 120 nodes: a thread block's CSR
+    span takes a dozen or more pieces, bit-equal all the same to
+    strata_merge_sum and the ascending loop."""
+    st = _state(long_graph, one_d, cuda, "xxl")
+    assert int(st.mi.csr_off[-1]) >= 36_000 and st.bsch.num_blocks == 1
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    S = st.bsch.num_steps
+    st.drift[:, :S] = torch.randn(st.drift[:, :S].shape, generator=gen, device=cuda)
+    c_k, u_k, c_o, u_o = (t.clone() for t in (st.coords, st.upd) * 2)
+    kernels.strata_merge_sum(st.drift, st.mi, c_k, u_k)
+    strata_sgd.merge_sum_ordered_plain(st.drift, st.mi, c_o, u_o)
+    assert torch.equal(c_k, c_o) and torch.equal(u_k, u_o)
+    c_b, u_b = st.coords.clone(), st.upd.clone()
+    kernels.strata_merge_sum_blocked(st.drift, st.mi, st.bsch, c_b, u_b)
+    torch.cuda.synchronize()
+    assert torch.equal(c_b, c_k) and torch.equal(u_b, u_k)
+
+
+def test_levels_1d_wrapper_rejects_bad_arguments(cuda, long_graph):
+    st = _level_state_1d(long_graph, cuda, "resident")
+    p = st.plan
+    row = st.lvl_rows[0]
+    args = (st.drift, st.base, st.planes, st.od, st.eta, p["cpi"])
+    for bad_perm in (st.perm.cpu(), st.perm.long(), st.perm[:-1]):
+        with pytest.raises(ValueError):
+            kernels.strata_chunks_1d_levels(*args, bad_perm, row)
+    for bad_off in (row.cpu(), row[:1]):
+        with pytest.raises(ValueError):
+            kernels.strata_chunks_1d_levels(*args, st.perm, bad_off)
+    st2 = _level_state(long_graph, cuda, "resident")  # 2D planes
+    with pytest.raises(ValueError):
+        kernels.strata_chunks_1d_levels(st2.drift, st2.base, st2.planes, st2.od, st2.eta,
+                                        st2.plan["cpi"], st2.perm, st2.lvl_rows[0])
+    with pytest.raises(ValueError):
+        kernels.strata_chunks_2d_levels(*args, st.perm, row)
+
+
+def test_blocked_sum_rejects_bad_arguments(cuda, wide_graph):
+    st = _state(wide_graph, True, cuda, "xxl")
+    bs = st.bsch
+    for bad in (dataclasses.replace(bs, bs=bs.bs // 2),  # the blocks miss endpoints
+                dataclasses.replace(bs, bs=bs.bs - 1),
+                dataclasses.replace(bs, bs=1 << 16)):    # the broadcast cannot stage it
+        with pytest.raises(ValueError):
+            kernels.strata_merge_sum_blocked(st.drift, st.mi, bad, st.coords, st.upd)
+    with pytest.raises(ValueError):
+        kernels.strata_merge_sum_blocked(st.drift[:, :-1], st.mi, bs, st.coords, st.upd)

@@ -1,7 +1,7 @@
-"""Conflict levels of the 2D chunk phase (ops/strata_levels.py) and the
-leveled plain chunk phase, on the CPU.
+"""Conflict levels of the chunk phases (ops/strata_levels.py) and the
+leveled plain chunk phases, 2D and 1D, on the CPU.
 
-- The levels are a valid schedule: the chunks of one level are pairwise
+- The levels of 2D and of 1D plans are a valid schedule: the chunks of one level are pairwise
   slot-disjoint, and every earlier chunk that shares a slot with a chunk
   has a lower level.  Plans: one path shorter than a chunk (every D <
   CHUNK, so A and B windows overlap, and every window runs past the last
@@ -12,10 +12,10 @@ leveled plain chunk phase, on the CPU.
   (a per-chunk loop) exactly.
 - Running a group's chunks in level order, or in reversed order within
   each level, gives the chain's drift exactly (torch.equal).
-- The leveled 2D runs stay within the stated tolerances of odgi_tpu's
-  exact twin path_sgd_2d_strata_xla on every route: 1e-6 of the coordinate
-  scale after short runs, 1e-4 after the default schedule
-  (tests/test_torch_strata_sgd.py gives the reasons).
+- The leveled 2D and 1D runs stay within the stated tolerances of
+  odgi_tpu's exact twins path_sgd_2d_strata_xla / path_sgd_1d_strata_xla on
+  every route: 1e-6 of the coordinate scale after short runs, 1e-4 after
+  the default schedule (tests/test_torch_strata_sgd.py gives the reasons).
 """
 
 import numpy as np
@@ -82,10 +82,11 @@ def _graph(graph_cache, name):
     return graph_cache[name]
 
 
-def _plan(gj, iter_max, name):
+def _plan(gj, iter_max, name, one_d=False):
     gt = _port(gj)
-    cfg = sgd.derive_config_2d(gt, iter_max=iter_max, min_term_updates=TERMS[name])
-    return gt, cfg, strata_plan.plan_run(gt, cfg, one_d=False)
+    derive = sgd.derive_config_1d if one_d else sgd.derive_config_2d
+    cfg = derive(gt, iter_max=iter_max, min_term_updates=TERMS[name])
+    return gt, cfg, strata_plan.plan_run(gt, cfg, one_d=one_d)
 
 
 def _levels_of(p, perm, lvl_off):
@@ -97,10 +98,7 @@ def _levels_of(p, perm, lvl_off):
     return lvl
 
 
-@pytest.mark.parametrize("name,iter_max", PLANS, ids=PLAN_IDS)
-def test_levels_are_a_valid_schedule(graph_cache, name, iter_max):
-    gj = _graph(graph_cache, name)
-    gt, _, p = _plan(gj, iter_max, name)
+def _assert_valid_schedule(gt, p, name, iter_max):
     perm, lvl_off = strata_levels.chunk_levels(p)
     groups, cgs = p["groups"], p["cgs"]
     assert groups >= iter_max
@@ -141,12 +139,35 @@ def test_levels_are_a_valid_schedule(graph_cache, name, iter_max):
 
 
 @pytest.mark.parametrize("name,iter_max", PLANS, ids=PLAN_IDS)
-def test_levels_equal_plain_loop(graph_cache, name, iter_max):
-    _, _, p = _plan(_graph(graph_cache, name), iter_max, name)
+def test_levels_are_a_valid_schedule(graph_cache, name, iter_max):
+    gt, _, p = _plan(_graph(graph_cache, name), iter_max, name)
+    _assert_valid_schedule(gt, p, name, iter_max)
+
+
+@pytest.mark.parametrize("name,iter_max", PLANS, ids=PLAN_IDS)
+def test_levels_are_a_valid_schedule_1d(graph_cache, name, iter_max):
+    """A footprint depends only on (o, D): 1D plans level by the same rule."""
+    gt, _, p = _plan(_graph(graph_cache, name), iter_max, name, one_d=True)
+    assert p["data"].one_d
+    _assert_valid_schedule(gt, p, name, iter_max)
+
+
+def _assert_levels_equal_plain_loop(p):
     perm, lvl_off = strata_levels.chunk_levels(p)
     perm_p, lvl_off_p = strata_levels.chunk_levels_plain(p)
     np.testing.assert_array_equal(perm, perm_p)
     np.testing.assert_array_equal(lvl_off, lvl_off_p)
+
+
+@pytest.mark.parametrize("name,iter_max", PLANS, ids=PLAN_IDS)
+def test_levels_equal_plain_loop(graph_cache, name, iter_max):
+    _assert_levels_equal_plain_loop(_plan(_graph(graph_cache, name), iter_max, name)[2])
+
+
+@pytest.mark.parametrize("name,iter_max", PLANS, ids=PLAN_IDS)
+def test_levels_equal_plain_loop_1d(graph_cache, name, iter_max):
+    _assert_levels_equal_plain_loop(
+        _plan(_graph(graph_cache, name), iter_max, name, one_d=True)[2])
 
 
 def _reversed_within_levels(perm, lvl_off):
@@ -216,8 +237,71 @@ def test_leveled_default_schedule_matches_twin(graph_cache):
 
 
 def test_one_d_state_has_no_levels(graph_cache):
+    """A 1D state carries its conflict levels, as a 2D state does, and no
+    sync flags: no kernel of the main path reads them."""
     gt = _port(_graph(graph_cache, "walk"))
     cfg = sgd.derive_config_1d(gt, iter_max=1, min_term_updates=3 * 1024)
     st = strata_sgd.StrataState.build(gt, cfg, gt.node_offset.astype(np.float32), True,
                                       torch.device("cpu"))
-    assert st.perm is None and st.lvl_rows is None
+    perm, lvl_off = strata_levels.chunk_levels(st.plan)
+    assert torch.equal(st.perm, torch.from_numpy(perm))
+    depth = strata_levels.depths(lvl_off)
+    assert len(st.lvl_rows) == st.plan["groups"]
+    for gid, row in enumerate(st.lvl_rows):
+        assert torch.equal(row, torch.from_numpy(lvl_off[gid, :depth[gid] + 1]))
+    assert not hasattr(st, "sync")
+
+
+@pytest.mark.parametrize("order", ["levels", "reversed"])
+@pytest.mark.parametrize("name", ["short", "synth"])
+def test_leveled_chunks_1d_equal_chain(graph_cache, name, order):
+    gj = _graph(graph_cache, name)
+    gt, cfg, _ = _plan(gj, 2, name, one_d=True)
+    st = strata_sgd.StrataState.build(gt, cfg, gt.node_offset.astype(np.float32), True,
+                                      torch.device("cpu"))
+    p = st.plan
+    perm_h, lvl_off = strata_levels.chunk_levels(p)
+    if order == "reversed":
+        perm_h = _reversed_within_levels(perm_h, lvl_off)
+    perm = torch.from_numpy(perm_h)
+    depth = strata_levels.depths(lvl_off)
+    if name == "synth":
+        assert depth.max() < p["cgs"]
+    for gid in range(p["groups"]):
+        row = torch.from_numpy(lvl_off[gid, :depth[gid] + 1])
+        d_l, d_c = st.drift.clone(), st.drift.clone()
+        strata_sgd.chunks_1d_levels_plain(d_l, st.base, st.planes, st.od, st.eta, p["cpi"],
+                                          perm, row)
+        strata_sgd.chunks_1d_plain(d_c, st.base, st.planes, st.od, st.eta, p["cpi"],
+                                   gid * p["cgs"], p["cgs"])
+        assert torch.equal(d_l, d_c)
+        assert float(d_c.abs().max()) > 0
+        st.drift = d_c
+        kernels.strata_merge_sum(st.drift, st.mi, st.coords, st.upd)
+        kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)
+
+
+@pytest.mark.parametrize("route", ["resident", "xl", "xxl"])
+@pytest.mark.parametrize("kw,tol", [
+    (dict(iter_max=2, min_term_updates=3 * 1024), SHORT_TOL),
+    (dict(iter_max=3, min_term_updates=3 * 1024), SHORT_TOL),
+], ids=["iter2", "iter3"])
+def test_leveled_runs_1d_match_twin(graph_cache, route, kw, tol):
+    gj = _graph(graph_cache, "walk")
+    gt = _port(gj)
+    twin = np.asarray(ps.path_sgd_1d_strata_xla(gj, j_sgd.derive_config_1d(gj, **kw)))
+    port = strata_sgd.path_sgd_1d_strata(gt, sgd.derive_config_1d(gt, **kw), None, "cpu",
+                                         route=route).numpy()
+    assert np.isfinite(port).all()
+    assert np.abs(port - twin).max() / (np.abs(twin).max() + 1) <= tol
+    assert np.abs(port - gt.node_offset).max() > 1.0
+
+
+@pytest.mark.parametrize("route", ["xl", "xxl"])
+def test_leveled_default_schedule_1d_matches_twin(graph_cache, route):
+    gj = _graph(graph_cache, "walk")
+    gt = _port(gj)
+    twin = np.asarray(ps.path_sgd_1d_strata_xla(gj, j_sgd.derive_config_1d(gj)))
+    port = strata_sgd.path_sgd_1d_strata(gt, sgd.derive_config_1d(gt), None, "cpu",
+                                         route=route).numpy()
+    assert np.abs(port - twin).max() / (np.abs(twin).max() + 1) <= DEFAULT_TOL

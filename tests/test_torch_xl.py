@@ -212,13 +212,21 @@ def test_xl_route_1d(graphs):
 
 
 def test_xl_state_carries_sync_flags(graphs):
+    """The XL state's plan gives one sync flag a chunk (the stream chain
+    kernels' gate); the state itself carries the conflict levels, which
+    replace the flags on the main path."""
     import torch
+
+    from odgi_tpu_torch.ops import strata_levels
 
     _, gt = graphs
     cfg = sgd.derive_config_2d(gt, **KW)
     st = strata_sgd.StrataState.build(gt, cfg, j_init_layout(gt, "d"), False,
                                       torch.device("cpu"), "xl")
-    assert st.sync.dtype == torch.int32 and st.sync.shape == (st.od.shape[0],)
+    flags = strata_xl.sync_flags(st.plan)
+    assert flags.dtype == np.int32 and flags.shape == (st.od.shape[0],)
+    assert not hasattr(st, "sync")
+    assert torch.equal(st.perm, torch.from_numpy(strata_levels.chunk_levels(st.plan)[0]))
     assert st.bsch is None and st.order is None
     with pytest.raises(ValueError):
         strata_sgd.StrataState.build(gt, cfg, j_init_layout(gt, "d"), False,

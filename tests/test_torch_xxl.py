@@ -189,7 +189,8 @@ def test_blocked_merges_equal_csr_merges(graphs, one_d, bs):
 
 @pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
 def test_schedule_fault_shows_on_cpu(graphs, one_d):
-    """Dropping one entry from the schedule changes the blocked sums."""
+    """Dropping one entry from the schedule changes the blocked broadcast
+    (the sum reads the node blocks' CSR spans, not the tiles)."""
     _, gt = graphs
     st, _ = _random_state(gt, one_d, 4)
     bs = st.bsch
@@ -200,10 +201,11 @@ def test_schedule_fault_shows_on_cpu(graphs, one_d):
     off = bs.blk_off.clone()
     off[b + 1:] -= 1
     broken = dataclasses.replace(bs, tile=bs.tile[keep], block=bs.block[keep], blk_off=off)
-    c_b, u_b, c_p, u_p = (t.clone() for t in (st.coords, st.upd, st.coords, st.upd))
-    strata_sgd.merge_sum_blocked_plain(st.drift, st.mi, broken, c_b, u_b)
-    strata_sgd.merge_sum_plain(st.drift, st.mi, c_p, u_p)
-    assert not torch.equal(u_b, u_p)
+    b_b, b_p = st.base.clone(), st.base.clone()
+    d_b, d_p = st.drift.clone(), st.drift.clone()
+    strata_sgd.merge_bcast_blocked_plain(d_b, b_b, st.mi, broken, st.upd)
+    strata_sgd.merge_bcast_plain(d_p, b_p, st.mi, st.upd)
+    assert not torch.equal(b_b, b_p) and d_b.any()
 
 
 # ---------------------------------------------------------------------------
@@ -247,4 +249,24 @@ def test_xxl_state(graphs, small_blocks):
                                       torch.device("cpu"), "xxl")
     assert st.order is not None and st.bsch.bs == BS
     assert st.bsch.num_blocks * BS >= 2 * gt.num_nodes
-    assert st.sync.shape == (st.od.shape[0],)
+    assert st.perm.shape == (st.od.shape[0],) and len(st.lvl_rows) == st.plan["groups"]
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+@pytest.mark.parametrize("bs", [128, BS, strata_xxl.XXL_BS])
+def test_blocked_sum_equals_ordered_loop(graphs, one_d, bs):
+    """The plain blocked sum, node block by node block over the CSR, at
+    blocks of one node row up to the port's size: the ascending loop's
+    sums exactly, whatever the tiles of the schedule."""
+    _, gt = graphs
+    st, g_run = _random_state(gt, one_d, 6)
+    bsch = strata_xxl.BlockSchedule.build(g_run, one_d, "cpu", bs)
+    c_b, u_b, c_o, u_o = (t.clone() for t in (st.coords, st.upd, st.coords, st.upd))
+    strata_sgd.merge_sum_blocked_plain(st.drift, st.mi, bsch, c_b, u_b)
+    strata_sgd.merge_sum_ordered_plain(st.drift, st.mi, c_o, u_o)
+    assert torch.equal(c_b, c_o) and torch.equal(u_b, u_o)
+    assert float(u_o.abs().max()) > 0
+    no_tiles = dataclasses.replace(bsch, tile=bsch.tile[:1], block=bsch.block[:1])
+    c_n, u_n = st.coords.clone(), st.upd.clone()
+    strata_sgd.merge_sum_blocked_plain(st.drift, st.mi, no_tiles, c_n, u_n)
+    assert torch.equal(u_n, u_o)
