@@ -37,7 +37,15 @@ Phases, each printing one line or more:
      values and quality, then sort_pipeline("gs") and a .lay round trip;
      then, on the first groups of the full 1D and 2D plans, the leveled
      kernels against the stream chain kernels, and the blocked sum against
-     the CSR sum (bit-equal) and one index_add_, each timed.
+     the CSR sum (bit-equal) and one index_add_, each timed;
+  8. the sharded path (odgi_tpu_torch.parallel.sharded_strata), after the XL
+     path: the sorted smoke and XL graphs at 4 devices simulated on the
+     card, default 2D schedule, each gated at most 5% above its graph's
+     single-device stress from phases 4 and 6; on the smoke graph 1 device
+     simulated equals, bit for bit, the same run in a one-rank NCCL process
+     group, and lies within 1e-4 of the scale of path_sgd_2d on the
+     resident route; each graph's stacked plan's first group of its last
+     device goes through the kernels against their plain versions.
 Every path runs with the launch counts set to 0 just before it and read
 just after; each prints the conflict levels of its 1D and 2D plans and the
 host seconds that built them (host_s.levels_1d / levels_2d).  The line
@@ -49,8 +57,10 @@ object.  Any failed phase exits non-zero and prints no ok line.
 
 from __future__ import annotations
 
+import datetime
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -64,6 +74,7 @@ from odgi_tpu_torch.algorithms import groom, layout, path_sgd_sort, topological
 from odgi_tpu_torch.ops import (kernels, strata_levels, strata_plan, strata_route, strata_sgd,
                                 strata_xl, strata_xxl)
 from odgi_tpu_torch.ops.sgd import derive_config_1d, derive_config_2d
+from odgi_tpu_torch.parallel import sharded_strata
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
@@ -93,6 +104,9 @@ BIGSCALE = dict(nt_before=649_736.0405, nt_after=1.4836,
 START_RTOL = 1e-6
 BIG_NT_AFTER_MAX = 1.558       # BIGSCALE's 1.4836 plus 5%
 BIG_STRESS_AFTER_MAX = 1.353   # BIGSCALE's 1.2882 plus 5%
+SHARDED_DEVICES = 4
+SHARDED_STRESS_RATIO = 1.05    # a sharded stress at most 5% above the graph's single-device one
+SHARDED_ONE_TOL = 1e-4         # one device against path_sgd_2d (resident), of the scale
 SHORT_TERMS = 1024 * 1024      # short plans: a few hundred chunks a group
 BUSY_CYCLES = 2_000_000        # about 1 ms of the card's clock, past any wrapper's host time
 
@@ -113,6 +127,7 @@ ROUTE_KERNELS = {
     "xl": (LEVELS_2D, LEVELS_1D, "strata_merge_sum", "strata_merge_bcast"),
     "xxl": (LEVELS_2D, LEVELS_1D) + BLOCKED,
 }
+SHARDED_KERNELS = (LEVELS_2D, "strata_merge_sum", "strata_merge_bcast")  # once a group each
 FULL_GROUPS = 2  # groups of a full plan run on the leveled and the chain kernels
 REPLACES = {
     "strata_chunks_2d": "odgi_tpu/ops/pallas_sgd.py:1105",
@@ -131,7 +146,10 @@ ALSO_REPLACES = {
     "strata_chunks_1d_stream": ["odgi_tpu/ops/pallas_sgd_xxl.py:632"],
     "strata_merge_sum_blocked": ["odgi_tpu/ops/pallas_sgd_xxl.py:632"],
     "strata_merge_bcast_blocked": ["odgi_tpu/ops/pallas_sgd_xxl.py:632"],
-    LEVELS_2D: ["odgi_tpu/ops/pallas_sgd_xl.py:363", "odgi_tpu/ops/pallas_sgd_xxl.py:212"],
+    LEVELS_2D: ["odgi_tpu/ops/pallas_sgd_xl.py:363", "odgi_tpu/ops/pallas_sgd_xxl.py:212",
+                "odgi_tpu/parallel/sharded_pallas.py:60"],
+    "strata_merge_sum": ["odgi_tpu/parallel/sharded_pallas.py:60"],
+    "strata_merge_bcast": ["odgi_tpu/parallel/sharded_pallas.py:60"],
     LEVELS_1D: ["odgi_tpu/ops/pallas_sgd_xl.py:795", "odgi_tpu/ops/pallas_sgd_xxl.py:632"],
 }
 # Kernels with one PyTorch call that computes the same function (an f64
@@ -700,11 +718,12 @@ class KernelTimes:
         return dev_s
 
 
-def counted(label: str, rec: Record, fn):
+def counted(label: str, rec: Record, fn, levels=("1d", "2d")):
     """Run `fn` with the launch counts set to 0 just before and read just
     after; per-launch times go to `rec`.  The conflict levels the run
-    builds (one 1D plan for the sort, one 2D plan for the layout), and the
-    host seconds they take, go to out["levels_1d"] / out["levels_2d"]."""
+    builds (`levels`: one 1D plan for the sort, one 2D plan for the layout),
+    and the host seconds they take, go to out["levels_1d"] /
+    out["levels_2d"]."""
     times = KernelTimes(label)
     built = []
     build_levels = strata_levels.chunk_levels
@@ -727,8 +746,8 @@ def counted(label: str, rec: Record, fn):
         strata_levels.chunk_levels = build_levels
     torch.cuda.synchronize()
     tags = sorted(tag for tag, _, _ in built)
-    if tags != ["1d", "2d"]:
-        fail(f"{label}: level builds {tags}, expected one 1D (the sort) and one 2D (the layout)")
+    if tags != sorted(levels):
+        fail(f"{label}: level builds {tags}, expected {sorted(levels)}")
     for tag, seconds, stats in built:
         out[f"levels_{tag}"] = dict(seconds=seconds, **stats)
         say("levels", path=label, dim=tag, **out[f"levels_{tag}"])
@@ -845,7 +864,7 @@ def run_on_chain(fn, rec: Record, key: str, p: dict, one_d: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def phase_smoke(gfa_path: str, tmp: str, dev, rec: Record) -> dict:
+def phase_smoke(gfa_path: str, tmp: str, dev, rec: Record) -> tuple:
     host_s = {}
     state = {}
 
@@ -919,7 +938,7 @@ def phase_smoke(gfa_path: str, tmp: str, dev, rec: Record) -> dict:
     if not out["stress_after"] <= STRESS_AFTER_MAX:
         fail(f"stress after layout {out['stress_after']} > {STRESS_AFTER_MAX}")
     add_bounds(rec, "smoke", g, p1, g2, p2, "resident")
-    return out
+    return out, g2
 
 
 # ---------------------------------------------------------------------------
@@ -927,7 +946,7 @@ def phase_smoke(gfa_path: str, tmp: str, dev, rec: Record) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_xl(g, tmp: str, dev, rec: Record) -> dict:
+def phase_xl(g, tmp: str, dev, rec: Record) -> tuple:
     state = {}
 
     def run():
@@ -980,6 +999,156 @@ def phase_xl(g, tmp: str, dev, rec: Record) -> dict:
         fail(f"xl quality did not improve: {out}")
     add_bounds(rec, "xl", g, p1, g2, p2, "xl")
     full_groups(g, cfg1, g.node_offset.astype(np.float32), True, "xl", "xl/1d", dev, rec)
+    return out, g2
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the sharded path (parallel/sharded_strata.py)
+# ---------------------------------------------------------------------------
+
+
+class CallTimes:
+    """CUDA-event time of every call of `module.name` while installed (a
+    function the sharded run looks up in its module on each call)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.orig = module, name, getattr(module, name)
+        self.events = []
+
+    def __enter__(self) -> "CallTimes":
+        def timed_call(*a):
+            t = Timer()
+            r = self.orig(*a)
+            self.events.append(t.stop())
+            return r
+
+        setattr(self.module, self.name, timed_call)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.module, self.name, self.orig)
+
+    def ms(self) -> list:
+        return [t.ms() for t in self.events]
+
+
+def nccl_one_rank(fn):
+    """fn() inside a one-rank NCCL process group on this card (a store on a
+    free localhost port), destroyed after."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=300))
+    try:
+        return fn()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def stress_of(g, coords: np.ndarray, dev) -> float:
+    return ot.sum_of_path_node_distances(
+        g, (coords[:, 0], coords[:, 1]), device=dev).all_2d_by_nucleotides
+
+
+def phase_sharded(label: str, g, single_stress: float, dev, rec: Record,
+                  one_device: bool = False) -> dict:
+    """The sorted graph `g` of path `label` through
+    path_sgd_2d_strata_sharded at SHARDED_DEVICES devices, simulated, from
+    init_layout(g, "d") at the default 2D schedule, counted under
+    "sharded-<label>": wall, kernel time, consensus (fold) and replica
+    restart time per iteration, stress against `single_stress` (the same
+    graph's single-device layout).  Then the stacked plan's first group of
+    the last device through the kernels and their plain versions.  With
+    `one_device`: one device simulated against a one-rank NCCL group (bit
+    for bit) and against path_sgd_2d on the resident route."""
+    key = f"sharded-{label}"
+    cfg = derive_config_2d(g)
+    c0 = ot.init_layout(g, "d")
+    n = SHARDED_DEVICES
+    t0 = time.perf_counter()
+    sp = sharded_strata.stacked_plan(g, cfg, n)
+    host_s = dict(stacked_plan=time.perf_counter() - t0)
+    state = {}
+
+    def run():
+        with CallTimes(sharded_strata, "fold_consensus") as fold, \
+                CallTimes(sharded_strata, "restart_replica") as restart:
+            t0 = time.perf_counter()
+            coords = sharded_strata.path_sgd_2d_strata_sharded(g, c0, cfg, n_dev=n, device=dev)
+            out = dict(wall_s=sync_wall(t0))
+        state["coords"] = coords.cpu().numpy()
+        out["consensus_ms_per_iter"] = sum(fold.ms()) / cfg.iter_max
+        out["restart_ms_per_iter"] = sum(restart.ms()) / cfg.iter_max
+        return out
+
+    out = counted(key, rec, run, levels=("2d",))
+    coords = state["coords"]
+    for nm in kernels.NAMES:
+        want = sp["groups"] if nm in SHARDED_KERNELS else 0
+        if out["launches"][nm] != want:
+            fail(f"{key}: {nm} launched {out['launches'][nm]} times, expected {want}")
+    t0 = time.perf_counter()
+    valid = strata_plan._count_valid(g, sp["o_blk"], sp["d_arr"])
+    host_s["count_valid"] = time.perf_counter() - t0
+    kernels_s = out["sgd_device_s"]["2d"]
+    out.update(
+        devices=n, kernels_s=kernels_s, idle=1.0 - kernels_s / out["wall_s"],
+        host_s=dict(host_s, levels_2d=out["levels_2d"]["seconds"]),
+        plan=dict(cpi=sp["cpi"], cgs=sp["cgs"], groups=sp["groups"],
+                  groups_per_device=sp["groups"] // n, total_valid=valid),
+        valid_pair_updates_per_s_device=valid / kernels_s,
+        valid_pair_updates_per_s_wall=valid / out["wall_s"],
+        stress_before=stress_of(g, c0, dev), stress_after=stress_of(g, coords, dev),
+        single_device_stress=single_stress)
+    out["stress_ratio"] = out["stress_after"] / single_stress
+    rec.bounds[LEVELS_2D][f"{key}/2d"] = chunk_bounds(sp, False)
+    rec.bounds["strata_merge_sum"][f"{key}/2d"] = [merge_sum_bound(g, False)]
+    rec.bounds["strata_merge_bcast"][f"{key}/2d"] = [
+        merge_bcast_bound(g, sp["data"].num_slots, False)]
+
+    if one_device:
+        with CallTimes(sharded_strata, "gather_changes") as gather:
+            t0 = time.perf_counter()
+            nccl = nccl_one_rank(
+                lambda: sharded_strata.path_sgd_2d_strata_sharded(g, c0, cfg, device=dev))
+            out["one_rank_nccl_s"] = sync_wall(t0)
+        # the first all_gather also sets up the NCCL communicator
+        first, *rest = gather.ms()
+        out["nccl_all_gather_first_ms"] = first
+        out["nccl_all_gather_ms_per_iter"] = sum(rest) / len(rest)
+        t0 = time.perf_counter()
+        sim1 = sharded_strata.path_sgd_2d_strata_sharded(g, c0, cfg, n_dev=1, device=dev)
+        out["one_device_s"] = sync_wall(t0)
+        single = strata_sgd.path_sgd_2d_strata(g, c0, cfg, dev, route="resident")
+        out["one_rank_nccl_equal"] = bool(torch.equal(nccl, sim1))
+        out["one_device_vs_single_err"] = rel_err(sim1, single, float(single.abs().max()) + 1.0)
+        out["one_device_stress"] = stress_of(g, sim1.cpu().numpy(), dev)
+        out["one_device_finite"] = bool(torch.isfinite(sim1).all() and torch.isfinite(nccl).all())
+
+    # the last device's first group of the stacked plan (its chunks' global
+    # indices past 2147 x n) through the kernels and their plain versions
+    st = strata_sgd.StrataState.build(g, cfg, c0, False, dev, "resident", plan=sp)
+    warm_up(st)
+    compare_group(st, (n - 1) * (sp["groups"] // n), rec, f"{key}/2d")
+    del st
+    torch.cuda.synchronize()
+    say("main_path", path=key, **out)
+
+    if not np.isfinite(coords).all():
+        fail(f"{key}: coordinates not finite")
+    if not out["stress_after"] <= SHARDED_STRESS_RATIO * single_stress:
+        fail(f"{key}: stress {out['stress_after']} > {SHARDED_STRESS_RATIO} x the single "
+             f"device's {single_stress}")
+    if one_device:
+        if not out["one_rank_nccl_equal"]:
+            fail(f"{key}: the one-rank NCCL run differs from the one-device simulation")
+        if not out["one_device_finite"]:
+            fail(f"{key}: one-device coordinates not finite")
+        if not out["one_device_vs_single_err"] <= SHARDED_ONE_TOL:
+            fail(f"{key}: one device {out['one_device_vs_single_err']:.3e} of the scale from "
+                 f"path_sgd_2d (resident) > {SHARDED_ONE_TOL}")
     return out
 
 
@@ -1209,7 +1378,7 @@ def main() -> int:
         write_smoke_gfa(gfa, SMOKE_STEPS, SMOKE_NODES, SMOKE_PATH_STEPS)
         say("gfa", seconds=time.perf_counter() - t0, bytes=os.path.getsize(gfa))
         phase_kernels(ot.parse_gfa(gfa, device=dev), dev, rec)
-        phase_smoke(gfa, tmp, dev, rec)
+        smoke, g_smoke = phase_smoke(gfa, tmp, dev, rec)
 
         t0 = time.perf_counter()
         g_xl = shuffled_graph(XL_STEPS, XL_NODES, XL_PATH_STEPS)
@@ -1222,7 +1391,10 @@ def main() -> int:
                                             for tag, one_d in (("1d", True), ("2d", False))})
         phase_stream_kernels(g_xl, "xl", "xl", dev, rec)
         phase_stream_kernels(g_big, "big", "xxl", dev, rec)
-        phase_xl(g_xl, tmp, dev, rec)
+        xl, g_xl2 = phase_xl(g_xl, tmp, dev, rec)
+        phase_sharded("smoke", g_smoke, smoke["stress_after"], dev, rec, one_device=True)
+        phase_sharded("xl", g_xl2, xl["stress_after"], dev, rec)
+        del g_smoke, g_xl2
         phase_big(g_big, tmp, dev, rec)
 
     print(json.dumps(kernel_line(rec)), flush=True)

@@ -114,7 +114,10 @@ def _chunk_2d(drift, base, planes, o: int, D: int, lr, gl: int) -> None:
     dx = xa - xb
     dx = torch.where(dx == 0.0, 1e-9, dx)
     dy = ya - yb
-    mag = torch.sqrt(dx * dx + dy * dy)
+    # the root in f64, rounded once: the correctly rounded f32 root, as the
+    # kernel's sqrtf and XLA's give it (PyTorch's vectorized f32 sqrt on the
+    # CPU can be an ulp off)
+    mag = torch.sqrt((dx * dx + dy * dy).to(torch.float64)).to(torch.float32)
     delta = mu * (mag - term) * 0.5
     r = torch.where(valid, delta / mag, 0.0)
     rx = r * dx
@@ -413,16 +416,20 @@ class StrataState:
 
     @staticmethod
     def build(g, cfg, init: np.ndarray, one_d: bool, device,
-              route: str = "resident") -> "StrataState":
+              route: str = "resident", plan: Optional[dict] = None) -> "StrataState":
         """`init`: (2N, 2) coordinates for 2D, (N,) positions for 1D, in
-        `g`'s numbering."""
+        `g`'s numbering.  `plan` replaces `plan_run`'s plan of `g` (the
+        sharded run's stacked plan); the "xxl" route, which relabels `g`,
+        takes none."""
         if route not in ROUTES:
             raise ValueError(f"strata route {route!r} is not one of {ROUTES}")
         order = None
         if route == "xxl":
+            if plan is not None:
+                raise ValueError("the xxl route relabels the graph and plans it itself")
             g, order = relabel(g)
             init = relabel_coords(np.asarray(init), order)
-        p = plan_run(g, cfg, one_d=one_d)
+        p = plan_run(g, cfg, one_d=one_d) if plan is None else plan
         data = p["data"]
         L = data.num_slots
         S = g.num_steps

@@ -11,7 +11,10 @@ fixed order: <= 1e-12 of the scale.  The stream and blocked kernels of the
 XL and XXL routes equal the resident kernels exactly.  The leveled 2D and
 1D chunk kernels equal the chain kernels exactly, strata_merge_sum equals
 the ascending-order loop merge_sum_ordered_plain exactly at every block
-size, and the blocked sum equals it too, at every node-block size.
+size, and the blocked sum equals it too, at every node-block size.  The
+sharded run at two simulated devices on the card lies within 1e-9 of the
+same run on the CPU, and a one-rank NCCL group equals the one-device
+simulation exactly.
 """
 
 import dataclasses
@@ -499,3 +502,53 @@ def test_blocked_sum_rejects_bad_arguments(cuda, wide_graph):
             kernels.strata_merge_sum_blocked(st.drift, st.mi, bad, st.coords, st.upd)
     with pytest.raises(ValueError):
         kernels.strata_merge_sum_blocked(st.drift[:, :-1], st.mi, bs, st.coords, st.upd)
+
+
+SHARDED_TOL = 1e-9
+
+
+def test_sharded_card_matches_cpu(cuda, graph):
+    """Two simulated devices on the card against the same run on the CPU:
+    <= 1e-9 of the scale (the CUDA merge sum folds each endpoint's slots in
+    ascending order, the CPU plain sum through index_add_); every group of
+    the stacked plan goes through the resident kernels once."""
+    from odgi_tpu_torch.parallel import sharded_strata
+
+    c0 = init_layout(graph)
+    cfg = sgd.derive_config_2d(graph, iter_max=3, min_term_updates=3 * 1024)
+    before = dict(kernels.LAUNCHES)
+    on_card = sharded_strata.path_sgd_2d_strata_sharded(graph, c0, cfg, n_dev=2,
+                                                        device="cuda").cpu().numpy()
+    groups = sharded_strata.stacked_plan(graph, cfg, 2)["groups"]
+    for n in ("strata_chunks_2d_levels", "strata_merge_sum", "strata_merge_bcast"):
+        assert kernels.LAUNCHES[n] - before[n] == groups
+    on_cpu = sharded_strata.path_sgd_2d_strata_sharded(graph, c0, cfg, n_dev=2,
+                                                       device="cpu").numpy()
+    assert np.isfinite(on_card).all()
+    assert np.abs(on_card - on_cpu).max() / (np.abs(on_cpu).max() + 1) <= SHARDED_TOL
+
+
+def test_sharded_one_rank_nccl_equals_simulation(cuda, graph):
+    """A one-rank NCCL group gives the one-device simulation's coordinates
+    bit for bit."""
+    import datetime
+    import socket
+
+    from odgi_tpu_torch.parallel import sharded_strata
+
+    c0 = init_layout(graph)
+    cfg = sgd.derive_config_2d(graph, iter_max=3, min_term_updates=3 * 1024)
+    sim = sharded_strata.path_sgd_2d_strata_sharded(graph, c0, cfg, n_dev=1, device="cuda")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                         world_size=1, rank=0,
+                                         timeout=datetime.timedelta(seconds=120))
+    try:
+        with pytest.raises(ValueError):
+            sharded_strata.path_sgd_2d_strata_sharded(graph, c0, cfg, n_dev=2, device="cuda")
+        nccl = sharded_strata.path_sgd_2d_strata_sharded(graph, c0, cfg, device="cuda")
+    finally:
+        torch.distributed.destroy_process_group()
+    assert torch.equal(nccl, sim)

@@ -45,3 +45,18 @@ def test_no_jax_or_odgi_tpu_import(path):
     for name in _imported_roots(path):
         root = name.split(".")[0]
         assert root not in ("jax", "jaxlib", "odgi_tpu"), f"{path}: imports {name}"
+
+
+def test_parallel_imports_neither_jax_nor_odgi_tpu():
+    """What a spawned rank of the sharded run imports (its worker's module)
+    pulls in neither jax nor odgi_tpu."""
+    code = (
+        "import sys\n"
+        "from odgi_tpu_torch.parallel.sharded_strata import run_rank\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'odgi_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

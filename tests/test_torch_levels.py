@@ -236,7 +236,7 @@ def test_leveled_default_schedule_matches_twin(graph_cache):
     assert np.abs(port - twin).max() / (np.abs(twin).max() + 1) <= DEFAULT_TOL
 
 
-def test_one_d_state_has_no_levels(graph_cache):
+def test_one_d_state_has_levels(graph_cache):
     """A 1D state carries its conflict levels, as a 2D state does, and no
     sync flags: no kernel of the main path reads them."""
     gt = _port(_graph(graph_cache, "walk"))

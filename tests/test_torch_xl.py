@@ -211,7 +211,7 @@ def test_xl_route_1d(graphs):
     assert np.abs(xl - gt.node_offset).max() > 1.0
 
 
-def test_xl_state_carries_sync_flags(graphs):
+def test_xl_plan_sync_flags(graphs):
     """The XL state's plan gives one sync flag a chunk (the stream chain
     kernels' gate); the state itself carries the conflict levels, which
     replace the flags on the main path."""
