@@ -21,10 +21,11 @@ Phases, each printing one line or more:
      quality and plan gates (the resident route); the Y sort and the layout
      again with their chunk phases forced onto the chain kernels give the
      same order and coordinates, bit for bit;
-  5. the stream and blocked kernels against their plain versions and
-     against the resident kernels, and the leveled kernels against the
-     chain kernels, on short plans (a few hundred chunks a group) of the XL
-     and the 1M-node graphs;
+  5. the stream kernels and the blocked sum against their plain versions
+     and against the resident kernels, the broadcast against its plain
+     version (bit for bit, beside the times of the designs it replaced),
+     and the leveled kernels against the chain kernels, on short plans (a
+     few hundred chunks a group) of the XL and the 1M-node graphs;
   6. the XL path: 5,000,000 steps (100 paths x 50,000 over 10,000 nodes)
      -> sort_pipeline("Ygs") -> layout_graph -> .lay -> stats, on the "xl"
      route in 1D and 2D; the layout forced onto the "resident" route with
@@ -47,8 +48,10 @@ Phases, each printing one line or more:
      resident route; each graph's stacked plan's first group of its last
      device goes through the kernels against their plain versions.
 Every path runs with the launch counts set to 0 just before it and read
-just after; each prints the conflict levels of its 1D and 2D plans and the
-host seconds that built them (host_s.levels_1d / levels_2d).  The line
+just after; every SPIN_EVERY-th launch of a kernel on it is queued behind a
+spin kernel, so that its time holds the kernel alone; each prints the
+conflict levels of its 1D and 2D plans and the host seconds that built
+them (host_s.levels_1d / levels_2d).  The line
 before the card line is one JSON object with every kernel's launches,
 error, times and bound (the chain kernels, off the main path, with the
 times of their comparison launches); the last line is the ok/device
@@ -109,11 +112,13 @@ SHARDED_STRESS_RATIO = 1.05    # a sharded stress at most 5% above the graph's s
 SHARDED_ONE_TOL = 1e-4         # one device against path_sgd_2d (resident), of the scale
 SHORT_TERMS = 1024 * 1024      # short plans: a few hundred chunks a group
 BUSY_CYCLES = 2_000_000        # about 1 ms of the card's clock, past any wrapper's host time
+SPIN_EVERY = 20                # every 20th launch of a kernel on a counted path runs behind
+                               # a spin kernel, so that its events hold the kernel alone
 
 RESIDENT = ("strata_chunks_2d", "strata_chunks_1d", "strata_merge_sum",
             "strata_merge_bcast")
 STREAM = ("strata_chunks_2d_stream", "strata_chunks_1d_stream")
-BLOCKED = ("strata_merge_sum_blocked", "strata_merge_bcast_blocked")
+BLOCKED = ("strata_merge_sum_blocked",)
 LEVELS_2D, LEVELS_1D = "strata_chunks_2d_levels", "strata_chunks_1d_levels"
 LEVELS = {False: LEVELS_2D, True: LEVELS_1D}  # by one_d
 # The chain kernels: off the main path, launched only to hold the leveled
@@ -125,7 +130,7 @@ CHAIN_OF = {(False, False): "strata_chunks_2d", (False, True): "strata_chunks_2d
 ROUTE_KERNELS = {
     "resident": (LEVELS_2D, LEVELS_1D, "strata_merge_sum", "strata_merge_bcast"),
     "xl": (LEVELS_2D, LEVELS_1D, "strata_merge_sum", "strata_merge_bcast"),
-    "xxl": (LEVELS_2D, LEVELS_1D) + BLOCKED,
+    "xxl": (LEVELS_2D, LEVELS_1D, "strata_merge_sum_blocked", "strata_merge_bcast"),
 }
 SHARDED_KERNELS = (LEVELS_2D, "strata_merge_sum", "strata_merge_bcast")  # once a group each
 FULL_GROUPS = 2  # groups of a full plan run on the leveled and the chain kernels
@@ -137,7 +142,6 @@ REPLACES = {
     "strata_chunks_2d_stream": "odgi_tpu/ops/pallas_sgd_xl.py:363",
     "strata_chunks_1d_stream": "odgi_tpu/ops/pallas_sgd_xl.py:795",
     "strata_merge_sum_blocked": "odgi_tpu/ops/pallas_sgd_xxl.py:212",
-    "strata_merge_bcast_blocked": "odgi_tpu/ops/pallas_sgd_xxl.py:212",
     LEVELS_2D: "odgi_tpu/ops/pallas_sgd.py:1105",
     LEVELS_1D: "odgi_tpu/ops/pallas_sgd.py:1158",
 }
@@ -145,13 +149,21 @@ ALSO_REPLACES = {
     "strata_chunks_2d_stream": ["odgi_tpu/ops/pallas_sgd_xxl.py:212"],
     "strata_chunks_1d_stream": ["odgi_tpu/ops/pallas_sgd_xxl.py:632"],
     "strata_merge_sum_blocked": ["odgi_tpu/ops/pallas_sgd_xxl.py:632"],
-    "strata_merge_bcast_blocked": ["odgi_tpu/ops/pallas_sgd_xxl.py:632"],
     LEVELS_2D: ["odgi_tpu/ops/pallas_sgd_xl.py:363", "odgi_tpu/ops/pallas_sgd_xxl.py:212",
                 "odgi_tpu/parallel/sharded_pallas.py:60"],
-    "strata_merge_sum": ["odgi_tpu/parallel/sharded_pallas.py:60"],
-    "strata_merge_bcast": ["odgi_tpu/parallel/sharded_pallas.py:60"],
+    "strata_merge_sum": ["odgi_tpu/ops/pallas_sgd_xl.py:363", "odgi_tpu/ops/pallas_sgd_xl.py:795",
+                         "odgi_tpu/parallel/sharded_pallas.py:60"],
+    "strata_merge_bcast": ["odgi_tpu/ops/pallas_sgd_xl.py:363", "odgi_tpu/ops/pallas_sgd_xl.py:795",
+                           "odgi_tpu/ops/pallas_sgd_xxl.py:212", "odgi_tpu/ops/pallas_sgd_xxl.py:632",
+                           "odgi_tpu/parallel/sharded_pallas.py:60"],
     LEVELS_1D: ["odgi_tpu/ops/pallas_sgd_xl.py:795", "odgi_tpu/ops/pallas_sgd_xxl.py:632"],
 }
+# The broadcast designs strata_merge_bcast replaced, as this script timed
+# them (spin-first launches) on the 1M-node graph's merges before the
+# redesign, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6): the blocked
+# kernel (a thread block a schedule entry) and the one-thread-a-slot kernel.
+REPLACED_BCAST_MS = {"1d": dict(blocked=0.18882, one_thread_a_slot=0.07219),
+                     "2d": dict(blocked=0.47560, one_thread_a_slot=0.30608)}
 # Kernels with one PyTorch call that computes the same function (an f64
 # index_add_), timed as a yardstick only.
 LIBRARY = ("strata_merge_sum", "strata_merge_sum_blocked")
@@ -329,14 +341,16 @@ def schedule_stats(g, one_d: bool) -> dict:
 
 class Record:
     """Errors, plain and library times of the comparison phases; launch
-    times of the counted paths; bounds per counted launch; times and bounds
-    of the chain kernels' comparison launches (cmp_ms, cmp_bounds)."""
+    times of the counted paths (events; spun: those behind a spin kernel);
+    bounds per counted launch; times and bounds of the chain kernels'
+    comparison launches (cmp_ms, cmp_bounds)."""
 
     def __init__(self):
         self.err = {n: {} for n in kernels.NAMES}
         self.plain_ms = {n: {} for n in kernels.NAMES}
         self.library_ms = {n: {} for n in kernels.NAMES}
         self.events = {n: {} for n in kernels.NAMES}
+        self.spun = {n: {} for n in kernels.NAMES}
         self.bounds = {n: {} for n in kernels.NAMES}
         self.launches = {n: {} for n in kernels.NAMES}
         self.cmp_ms = {n: {} for n in CHAIN}
@@ -477,7 +491,6 @@ def check_ordered_sum(st, c_k, u_k, label: str) -> None:
 def compare_merges(st, gid: int, rec: Record, key: str):
     """The CSR merges and their plain versions on the same inputs; continues
     from the kernels' state.  Returns the four times."""
-    scale = float(st.base.abs().max()) + 1.0
     d_k = st.drift
     c_k, u_k = st.coords.clone(), st.upd.clone()
     c_p, u_p = st.coords.clone(), st.upd.clone()
@@ -493,18 +506,26 @@ def compare_merges(st, gid: int, rec: Record, key: str):
         fail(f"strata_merge_sum {key} group {gid}: max|delta|/scale {err / cscale:.3e} "
              f"> {MERGE_TOL}")
 
-    b_k, b_p = st.base.clone(), st.base.clone()
-    d_k2, d_p2 = d_k.clone(), d_k.clone()
-    b_ms = timed(kernels.strata_merge_bcast, d_k2, b_k, st.mi, u_k)
-    bp_ms = timed(strata_sgd.merge_bcast_plain, d_p2, b_p, st.mi, u_k)
-    err = max(float((b_k - b_p).abs().max()), float(d_k2.abs().max()))
-    rec.add("err", "strata_merge_bcast", key, err)
-    rec.add("plain_ms", "strata_merge_bcast", key, bp_ms)
-    if not err / scale <= MERGE_TOL:
-        fail(f"strata_merge_bcast {key} group {gid}: max|delta|/scale {err / scale:.3e} "
-             f"> {MERGE_TOL}")
+    d_k2, b_k, b_ms, bp_ms = compare_bcast(st, d_k, u_k, rec, key, f"group {gid}")
     st.drift, st.base, st.coords, st.upd = d_k2, b_k, c_k, u_k
     return s_ms, sp_ms, b_ms, bp_ms
+
+
+def compare_bcast(st, drift, upd, rec: Record, key: str, label: str):
+    """strata_merge_bcast and merge_bcast_plain on the state's base and
+    `drift` with the update `upd`: the same base bit for bit and a zero
+    drift, or fail.  Returns the kernel's drift and base and both times."""
+    b_k, b_p = st.base.clone(), st.base.clone()
+    d_k, d_p = drift.clone(), drift.clone()
+    b_ms = timed(kernels.strata_merge_bcast, d_k, b_k, st.mi, upd)
+    bp_ms = timed(strata_sgd.merge_bcast_plain, d_p, b_p, st.mi, upd)
+    err = max(float((b_k - b_p).abs().max()), float(d_k.abs().max()))
+    rec.add("err", "strata_merge_bcast", key, err)
+    rec.add("plain_ms", "strata_merge_bcast", key, bp_ms)
+    if not (torch.equal(b_k, b_p) and not d_k.any()):
+        fail(f"strata_merge_bcast {key} {label}: differs from merge_bcast_plain "
+             f"(max {err:.3e})")
+    return d_k, b_k, b_ms, bp_ms
 
 
 def warm_up(st, sync=None) -> None:
@@ -531,8 +552,6 @@ def warm_up(st, sync=None) -> None:
     if st.route == "xxl":
         kernels.strata_merge_sum_blocked(st.drift, st.mi, st.bsch, st.coords.clone(),
                                          st.upd.clone())
-        kernels.strata_merge_bcast_blocked(st.drift.clone(), st.base.clone(), st.mi,
-                                           st.bsch, st.upd)
     torch.cuda.synchronize()
 
 
@@ -623,21 +642,9 @@ def compare_stream_group(st, gid: int, rec: Record, key: str, sync) -> None:
             fail(f"strata_merge_sum_blocked {key}: max|delta|/scale {err / cscale:.3e} "
                  f"> {MERGE_TOL}")
 
-    d_b, b_b, d_k, b_k = (t.clone() for t in (st.drift, st.base, st.drift, st.base))
-    line["bcast_ms"] = timed(kernels.strata_merge_bcast_blocked, d_b, b_b, st.mi, st.bsch, u_b)
-    line["resident_bcast_ms"] = timed(kernels.strata_merge_bcast, d_k, b_k, st.mi, u_b)
-    if not (torch.equal(b_b, b_k) and torch.equal(d_b, d_k)):
-        fail(f"strata_merge_bcast_blocked {key} group {gid}: differs from strata_merge_bcast")
-    if gid == 0:
-        d_p, b_p = st.drift.clone(), st.base.clone()
-        bp_ms = timed(strata_sgd.merge_bcast_blocked_plain, d_p, b_p, st.mi, st.bsch, u_b)
-        err = max(float((b_b - b_p).abs().max()), float((d_b - d_p).abs().max()))
-        rec.add("err", "strata_merge_bcast_blocked", key, err)
-        rec.add("plain_ms", "strata_merge_bcast_blocked", key, bp_ms)
-        line["bcast_plain_ms"] = bp_ms
-        if not err / scale <= MERGE_TOL:
-            fail(f"strata_merge_bcast_blocked {key}: max|delta|/scale {err / scale:.3e} "
-                 f"> {MERGE_TOL}")
+    d_b, b_b, line["bcast_ms"], line["bcast_plain_ms"] = compare_bcast(
+        st, st.drift, u_b, rec, key, f"group {gid}")
+    line["replaced_bcast_ms"] = REPLACED_BCAST_MS[key.split("/")[1]]
     st.drift, st.base, st.coords, st.upd = d_b, b_b, c_b, u_b
     say("stream_vs_plain", **line)
 
@@ -669,19 +676,29 @@ def phase_stream_kernels(g, label: str, route: str, dev, rec: Record) -> None:
 
 class KernelTimes:
     """Wraps the kernel wrappers the strata runs call with CUDA events, per
-    kernel and per 1D/2D shape; the launch counts stay the wrappers' own."""
+    kernel and per 1D/2D shape; the launch counts stay the wrappers' own.
+    Where the host paces the card, a launch's events can hold the wrapper's
+    host time, so launch i of a kernel and shape with i % SPIN_EVERY ==
+    SPIN_EVERY // 2 is queued behind a spin kernel, as `timed` does: its
+    events hold the kernel alone (`spun`)."""
 
     def __init__(self, label: str):
         self.label = label
         self.events = {n: {"1d": [], "2d": []} for n in kernels.NAMES}
+        self.spun = {n: {"1d": [], "2d": []} for n in kernels.NAMES}
         self.orig = {n: getattr(kernels, n) for n in kernels.NAMES}
 
     def install(self) -> None:
         def wrap(name, fn, shape_of):
             def timed_call(*a):
+                tag = shape_of(a)
+                i = len(self.events[name][tag]) + len(self.spun[name][tag])
+                spin = i % SPIN_EVERY == SPIN_EVERY // 2
+                if spin:
+                    torch.cuda._sleep(BUSY_CYCLES)
                 t = Timer()
                 fn(*a)
-                self.events[name][shape_of(a)].append(t.stop())
+                (self.spun if spin else self.events)[name][tag].append(t.stop())
             return timed_call
 
         dim = {
@@ -692,7 +709,6 @@ class KernelTimes:
             "strata_merge_sum": lambda a: "1d" if a[2].shape[0] == 1 else "2d",
             "strata_merge_bcast": lambda a: "1d" if a[3].shape[0] == 1 else "2d",
             "strata_merge_sum_blocked": lambda a: "1d" if a[3].shape[0] == 1 else "2d",
-            "strata_merge_bcast_blocked": lambda a: "1d" if a[4].shape[0] == 1 else "2d",
             LEVELS_2D: lambda a: "2d",
             LEVELS_1D: lambda a: "1d",
         }
@@ -703,18 +719,18 @@ class KernelTimes:
         for n, fn in self.orig.items():
             setattr(kernels, n, fn)
 
-    def ms(self, name: str, tag: str):
-        return [t.ms() for t in self.events[name][tag]]
-
     def into(self, rec: Record) -> dict:
-        """Move the times into `rec`; returns the device seconds per tag."""
+        """Move the times into `rec` (the spun launches' into rec.spun);
+        returns the device seconds per tag."""
         dev_s = {"1d": 0.0, "2d": 0.0}
         for n in kernels.NAMES:
             for tag in ("1d", "2d"):
-                ms = self.ms(n, tag)
-                if ms:
+                ms = [t.ms() for t in self.events[n][tag]]
+                spun = [t.ms() for t in self.spun[n][tag]]
+                if ms or spun:
                     rec.events[n][f"{self.label}/{tag}"] = ms
-                    dev_s[tag] += sum(ms) / 1e3
+                    rec.spun[n][f"{self.label}/{tag}"] = spun
+                    dev_s[tag] += (sum(ms) + sum(spun)) / 1e3
         return dev_s
 
 
@@ -818,8 +834,8 @@ def lay_roundtrip(coords: np.ndarray, path: str, dev, out: dict) -> None:
 def add_bounds(rec: Record, label: str, g_1d, p1: dict, g_2d, p2: dict,
                route: str) -> None:
     """Bounds of every launch the path made, per kernel and dimension."""
-    suffix = "_blocked" if route == "xxl" else ""
-    merges = (f"strata_merge_sum{suffix}", f"strata_merge_bcast{suffix}")
+    merges = ("strata_merge_sum_blocked" if route == "xxl" else "strata_merge_sum",
+              "strata_merge_bcast")
     for (g, p, one_d, tag) in ((g_1d, p1, True, "1d"), (g_2d, p2, False, "2d")):
         key = f"{label}/{tag}"
         rec.bounds[LEVELS[one_d]][key] = chunk_bounds(p, one_d)
@@ -1275,10 +1291,9 @@ def full_groups(g, cfg, init, one_d: bool, route: str, key: str, dev, rec: Recor
         if route == "xxl":
             line.update(compare_sums(st))
             kernels.strata_merge_sum_blocked(st.drift, st.mi, st.bsch, st.coords, st.upd)
-            kernels.strata_merge_bcast_blocked(st.drift, st.base, st.mi, st.bsch, st.upd)
         else:
             kernels.strata_merge_sum(st.drift, st.mi, st.coords, st.upd)
-            kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)
+        kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)
         say("levels_vs_chain", **line)
     del st
     torch.cuda.synchronize()
@@ -1294,7 +1309,9 @@ def kernel_line(rec: Record) -> dict:
     counted path, the bound of those launches, and the plain version's and
     the library call's time per call on the same graph and dimension
     (weighted by the launches per path and dimension), and the same per
-    path.  The chain kernels have no launch on a counted path: their
+    path; `ms` is the mean of the main path's own event pairs, `spin_ms`
+    that of its launches queued behind a spin kernel (SPIN_EVERY).  The
+    chain kernels have no launch on a counted path: their
     times and bounds are those of their comparison launches on groups of a
     main path's size."""
     mean = lambda xs: sum(xs) / len(xs) if xs else None
@@ -1321,17 +1338,18 @@ def kernel_line(rec: Record) -> dict:
                             bound_ms=mean([v for v, _ in bounds]), bound_by=max(bounds)[1],
                             library_ms=None, per_path=per_path))
             continue
-        ev = rec.events[n]
-        launches = sum(len(v) for v in ev.values())
+        ev, spun = rec.events[n], rec.spun[n]
+        launches = sum(len(ev[k]) + len(spun[k]) for k in ev)
         if launches == 0 or launches != sum(rec.launches[n].values()):
             fail(f"{n}: {launches} timed launches, {rec.launches[n]} counted")
         per_path = {}
         for k, times in sorted(ev.items()):
             bl, plain = rec.bounds[n].get(k), rec.plain_ms[n].get(k)
-            if not bl or not plain:
-                fail(f"{n}: no bound or plain time for {k}")
+            if not bl or not plain or not spun[k]:
+                fail(f"{n}: no bound, plain time or spin-timed launch for {k}")
             vals = [bound_ms(b) for b in bl]
-            per_path[k] = dict(launches=len(times), ms=mean(times),
+            per_path[k] = dict(launches=len(times) + len(spun[k]), ms=mean(times),
+                               spin_ms=mean(spun[k]), spin_launches=len(spun[k]),
                                bound_ms=mean([v for v, _ in vals]), bound_by=max(vals)[1],
                                plain_ms=mean(plain),
                                library_ms=mean(rec.library_ms[n].get(k, [])))
@@ -1339,7 +1357,8 @@ def kernel_line(rec: Record) -> dict:
         heaviest = max(per_path.values(), key=lambda v: v["launches"] * v["bound_ms"])
         out.append(dict(
             **common, launches=launches,
-            ms=sum(sum(v) for v in ev.values()) / launches,
+            ms=sum(sum(v) for v in ev.values()) / sum(len(v) for v in ev.values()),
+            spin_ms=wsum("spin_ms"),
             plain_ms=wsum("plain_ms"), bound_ms=wsum("bound_ms"),
             bound_by=heaviest["bound_by"],
             library_ms=wsum("library_ms") if n in LIBRARY else None,

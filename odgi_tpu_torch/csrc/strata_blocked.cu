@@ -1,20 +1,16 @@
-// Blocked consensus merges of the XXL route for Hopper (sm_90a), with a
+// The blocked consensus sum of the XXL route for Hopper (sm_90a), with a
 // plain C interface that ops/kernels.py binds through ctypes.
 //
-// They replace the block-scheduled merge of the JAX package's big-N
-// kernels (odgi_tpu/ops/pallas_sgd_xxl.py):
-//   strata_merge_sum_blocked<NC>: the scatter pass (:363-418) of
-//     _make_kernel_xxl (NC = 2, :212) and of _make_kernel_xxl_1d (NC = 1,
-//     :632, scatter at :754-782)
-//   strata_merge_bcast_blocked<NC>: the broadcast pass (:422-447,
-//     :784-796) and the drift-zeroing pass (:449-457, :798-804)
-// and give the same sums, updates, coordinates and base as
-// strata_merge_sum / strata_merge_bcast (strata_sgd.cu), bit for bit.
+// strata_merge_sum_blocked<NC> replaces the scatter pass (:363-418) of the
+// JAX package's big-N kernels (odgi_tpu/ops/pallas_sgd_xxl.py)
+// _make_kernel_xxl (NC = 2, :212) and _make_kernel_xxl_1d (NC = 1, :632,
+// scatter at :754-782), and gives the same sums, updates and coordinates
+// as strata_merge_sum (strata_sgd.cu), bit for bit.  Their broadcast and
+// drift-zeroing passes are strata_merge_bcast (strata_sgd.cu), which every
+// route runs.
 //
-// The schedule (ops/strata_xxl.py) lists the (node block, step tile) pairs
-// that hold a real step, sorted by (block, tile); a block's entries are
-// contiguous (blk_off).  Nodes are relabeled by first visit, so a block's
-// slots lie in few tiles.
+// The node blocks are those of the (node block, step tile) schedule
+// (ops/strata_xxl.py); nodes are relabeled by first visit.
 //
 // strata_merge_sum_blocked: node block b (bs endpoints) is split over
 // thread blocks of 256 endpoints, a thread an endpoint.  Piece by piece of
@@ -34,16 +30,8 @@
 // not read them; reading whole tiles through a cp.async ring, as the TPU
 // kernel does, was 4-5x slower on the card (PERF.md).
 //
-// strata_merge_bcast_blocked: one thread block per schedule entry.  It
-// stages the block's update (rounded to f32) in shared memory and walks the
-// tile's slots; a real slot whose endpoint lies in the block takes the
-// update into base and has its drift zeroed.  Every real slot belongs to
-// exactly one entry, so no two thread blocks write one slot.  Thread
-// blocks past the last entry zero the drift of the pad slots [S, L).
-//
-// The bound of both (the least time, chip_smoke.py's bound_ms) is by bytes:
-// the drift of every real slot, the CSR, 1/R and the coordinates once
-// (sum); every slot's endpoint, base and drift once (broadcast).
+// The bound (the least time, chip_smoke.py's bound_ms) is by bytes: the
+// drift of every real slot, the CSR, 1/R and the coordinates once.
 //
 // Every entry launches on the given stream, allocates nothing and returns
 // cudaGetLastError().
@@ -57,10 +45,7 @@
 
 namespace {
 
-using strata::TILE;
-
 constexpr int SUB_EPS = 256;  // endpoints (= threads) a thread block, of a node block
-constexpr int BCAST_THREADS = 512;
 
 template <int NC>
 __host__ __device__ constexpr int drift_planes() { return NC == 1 ? 1 : 4; }
@@ -142,66 +127,6 @@ strata_merge_sum_blocked_kernel(const float* __restrict__ drift, long long L,
 }
 
 template <int NC>
-__global__ void __launch_bounds__(BCAST_THREADS)
-strata_merge_bcast_blocked_kernel(float* __restrict__ drift, float* __restrict__ base,
-                                  long long L, const int* __restrict__ ep,
-                                  const double* __restrict__ upd, int E, int ecap,
-                                  const int* __restrict__ sched_tile,
-                                  const int* __restrict__ sched_block, int K, int bs,
-                                  long long S) {
-  constexpr int NP = drift_planes<NC>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* us = reinterpret_cast<float*>(smem);  // [NC][bs] the block's update, f32
-  const int tid = threadIdx.x;
-  const int k = blockIdx.x;
-  if (k >= K) {  // pad slots: zero their drift
-    const long long s0 = S + (long long)(k - K) * TILE;
-    const long long s1 = min(s0 + TILE, L);
-    for (long long s = s0 + tid; s < s1; s += BCAST_THREADS)
-#pragma unroll
-      for (int p = 0; p < NP; ++p) drift[p * L + s] = 0.0f;
-    return;
-  }
-  const long long t0 = (long long)sched_tile[k] * TILE;
-  const long long t1 = min(t0 + TILE, S);
-  int eps[TILE / BCAST_THREADS];  // the tile's endpoints, loaded together
-#pragma unroll
-  for (int r = 0; r < TILE / BCAST_THREADS; ++r) {
-    const long long s = t0 + tid + r * BCAST_THREADS;
-    eps[r] = s < t1 ? ep[s] : -1;
-  }
-  const long long e0 = (long long)sched_block[k] * bs;
-  for (int j = tid; j < bs; j += BCAST_THREADS) {
-    const long long e = e0 + j;
-#pragma unroll
-    for (int ch = 0; ch < NC; ++ch)
-      us[ch * bs + j] = e < E ? (float)upd[ch * (long long)ecap + e] : 0.0f;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < TILE / BCAST_THREADS; ++r) {
-    const long long s = t0 + tid + r * BCAST_THREADS;
-    const long long loc = (long long)eps[r] - e0;
-    if (eps[r] < 0 || loc >= bs || loc < 0) continue;
-    const int j = (int)loc;
-    if constexpr (NC == 1) {
-      base[s] = base[s] + us[j];
-      drift[s] = 0.0f;
-    } else {
-      const int jr = j ^ 1;
-      base[s] = base[s] + us[j];
-      base[L + s] = base[L + s] + us[jr];
-      base[2 * L + s] = base[2 * L + s] + us[bs + j];
-      base[3 * L + s] = base[3 * L + s] + us[bs + jr];
-      drift[s] = 0.0f;
-      drift[L + s] = 0.0f;
-      drift[2 * L + s] = 0.0f;
-      drift[3 * L + s] = 0.0f;
-    }
-  }
-}
-
-template <int NC>
 int launch_sum(const void* drift, long long L, const void* csr_off, const void* csr_slot,
                const void* recip, void* coords, void* upd, int E, int ecap, int nb, int bs,
                cudaStream_t stream) {
@@ -209,23 +134,6 @@ int launch_sum(const void* drift, long long L, const void* csr_off, const void* 
   strata_merge_sum_blocked_kernel<NC><<<(unsigned)((long long)nb * nsub), sub, 0, stream>>>(
       (const float*)drift, L, (const int*)csr_off, (const int*)csr_slot, (const double*)recip,
       (double*)coords, (double*)upd, E, ecap, bs, sub, nsub);
-  return (int)cudaGetLastError();
-}
-
-template <int NC>
-int launch_bcast(void* drift, void* base, long long L, const void* ep, const void* upd,
-                 int E, int ecap, const void* sched_tile, const void* sched_block, int K,
-                 int bs, long long S, cudaStream_t stream) {
-  const size_t smem = (size_t)NC * bs * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(strata_merge_bcast_blocked_kernel<NC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long pad_blocks = (L - S + TILE - 1) / TILE;
-  strata_merge_bcast_blocked_kernel<NC><<<(unsigned)(K + pad_blocks), BCAST_THREADS, smem,
-                                          stream>>>(
-      (float*)drift, (float*)base, L, (const int*)ep, (const double*)upd, E, ecap,
-      (const int*)sched_tile, (const int*)sched_block, K, bs, S);
   return (int)cudaGetLastError();
 }
 
@@ -245,19 +153,6 @@ int strata_merge_sum_blocked(const void* drift, long long L, const void* csr_off
     return launch_sum<1>(drift, L, csr_off, csr_slot, recip, coords, upd, E, ecap, nb, bs, st);
   if (nc == 2)
     return launch_sum<2>(drift, L, csr_off, csr_slot, recip, coords, upd, E, ecap, nb, bs, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-int strata_merge_bcast_blocked(void* drift, void* base, long long L, const void* ep,
-                               const void* upd, int E, int ecap, int nc,
-                               const void* sched_tile, const void* sched_block, int K,
-                               int bs, long long S, void* stream) {
-  if (nc == 1)
-    return launch_bcast<1>(drift, base, L, ep, upd, E, ecap, sched_tile, sched_block, K,
-                           bs, S, (cudaStream_t)stream);
-  if (nc == 2)
-    return launch_bcast<2>(drift, base, L, ep, upd, E, ecap, sched_tile, sched_block, K,
-                           bs, S, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 

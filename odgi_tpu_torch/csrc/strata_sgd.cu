@@ -28,7 +28,8 @@ namespace {
 using strata::LANE;
 
 constexpr int CHUNK_THREADS = 1024;  // one block walks a merge group
-constexpr int MERGE_THREADS = 256;  // the broadcast
+constexpr int BCAST_THREADS = 256;
+constexpr int BCAST_BLOCKS_PER_SM = 16;
 constexpr int SUM_THREADS = 256;
 constexpr int SUM_TILE = 4096;  // CSR entries a block stages at once
 constexpr int SUM_PER = SUM_TILE / SUM_THREADS;
@@ -222,32 +223,82 @@ strata_merge_sum_kernel(const float* __restrict__ drift, long long L,
 }
 
 // ---------------------------------------------------------------------------
-// strata_merge_bcast<NC>: the broadcast half of _merge_tiles_2d/_1d.  One
-// thread per slot: base[p][s] += (float)upd[endpoint of replica p of s],
-// drift[p][s] = 0.  Pad slots hold the dummy endpoint, whose upd is 0.
-// Bound on this card: bytes (a streaming pass over base and drift plus a
-// gather from the small upd table); coalesced, one pass.
+// strata_merge_bcast<NC>: the broadcast half of _merge_tiles_2d/_1d, and the
+// broadcast and drift-zeroing passes of the XXL kernels
+// (odgi_tpu/ops/pallas_sgd_xxl.py _make_kernel_xxl :422-457,
+// _make_kernel_xxl_1d :784-804), on every route.  Per slot s:
+// base[p][s] = base[p][s] + (float)upd[endpoint of replica p of s] and
+// drift[p][s] = 0.  Pad slots hold the dummy endpoint (1D E, 2D E and E+1),
+// whose update no sum writes, so their base keeps its value.
+//
+// Bound on this card: bytes.  Per slot, the endpoint, each base plane read
+// and written and each drift plane written stream past once (2D 52 B, 1D
+// 16 B); the update table (2D 2 x (E+2) f64, 32 MB on the 1M-node graph)
+// is gathered, and neighbouring slots gather neighbouring endpoints once
+// the nodes are relabeled by first visit.  What the design does about it,
+// instead of the TPU's per-tile one-hot products:
+// - one pass over the slots: a thread takes 4 consecutive slots, with one
+//   16-byte load of their endpoints and, per plane, one 16-byte load and
+//   store of base and one 16-byte store of zeros to drift (L is a multiple
+//   of 4096, the planes are (planes, L) row-major);
+// - 2D: the forward and reverse update of endpoint e are upd[ch][e] and
+//   upd[ch][e ^ 1], one aligned 16-byte pair at e & ~1 (ecap is even, so
+//   row 1 starts aligned): two gathers a slot;
+// - the streaming accesses are marked evict-first (__ldcs / __stcs) and the
+//   table is read through the read-only path (__ldg);
+// - a grid-stride loop over BCAST_BLOCKS_PER_SM blocks of 256 an SM, more
+//   than an SM holds at once (2D 6, 1D 8).
+// No shared memory, no schedule.  The same adds as merge_bcast_plain, bit
+// for bit.  tools/bcast_variants.py times the alternatives (PERF.md): on
+// the 1M-node merges the streaming part alone runs at about 95% of the
+// bound in 2D, and the 2D gathers add 0.07-0.1 ms, about the time of
+// reading the 32 MB table from HBM once a path; an L2 access-policy window
+// on the table, an evict-last hint on it, no hints, one-shot grids and
+// grids of 6 or 8 blocks an SM were slower or no faster.
 // ---------------------------------------------------------------------------
+__device__ __forceinline__ float4 add4(float4 b, const float (&u)[4]) {
+  return make_float4(b.x + u[0], b.y + u[1], b.z + u[2], b.w + u[3]);
+}
+
 template <int NC>
-__global__ void strata_merge_bcast_kernel(float* __restrict__ drift, float* __restrict__ base,
-                                          long long L, const int* __restrict__ ep,
-                                          const double* __restrict__ upd, int ecap) {
-  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= L) return;
-  const int e = ep[s];
-  if (NC == 1) {
-    base[s] = base[s] + (float)upd[e];
-    drift[s] = 0.0f;
-  } else {
-    const int er = e ^ 1;
-    base[s] = base[s] + (float)upd[e];
-    base[L + s] = base[L + s] + (float)upd[er];
-    base[2 * L + s] = base[2 * L + s] + (float)upd[ecap + e];
-    base[3 * L + s] = base[3 * L + s] + (float)upd[ecap + er];
-    drift[s] = 0.0f;
-    drift[L + s] = 0.0f;
-    drift[2 * L + s] = 0.0f;
-    drift[3 * L + s] = 0.0f;
+__global__ void __launch_bounds__(BCAST_THREADS)
+strata_merge_bcast_kernel(float* __restrict__ drift, float* __restrict__ base, long long L,
+                          const int* __restrict__ ep, const double* __restrict__ upd,
+                          int ecap) {
+  const long long n4 = L >> 2;  // 4-slot groups a plane
+  const int4* ep4 = reinterpret_cast<const int4*>(ep);
+  float4* b4 = reinterpret_cast<float4*>(base);
+  float4* d4 = reinterpret_cast<float4*>(drift);
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (long long q = (long long)blockIdx.x * BCAST_THREADS + threadIdx.x; q < n4;
+       q += (long long)gridDim.x * BCAST_THREADS) {
+    const int4 e4 = __ldcs(ep4 + q);
+    const int e[4] = {e4.x, e4.y, e4.z, e4.w};
+    if constexpr (NC == 1) {
+      float u[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) u[i] = (float)__ldg(upd + e[i]);
+      __stcs(b4 + q, add4(__ldcs(b4 + q), u));
+      __stcs(d4 + q, zero);
+    } else {
+      const double2* ux = reinterpret_cast<const double2*>(upd);
+      const double2* uy = reinterpret_cast<const double2*>(upd + ecap);
+      float u[4][4];  // [plane][slot]: x fwd, x rev, y fwd, y rev
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const double2 x = __ldg(ux + (e[i] >> 1)), y = __ldg(uy + (e[i] >> 1));
+        const bool odd = e[i] & 1;  // e = (e & ~1) + odd: fwd at .x when even
+        u[0][i] = (float)(odd ? x.y : x.x);
+        u[1][i] = (float)(odd ? x.x : x.y);
+        u[2][i] = (float)(odd ? y.y : y.x);
+        u[3][i] = (float)(odd ? y.x : y.y);
+      }
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        __stcs(b4 + p * n4 + q, add4(__ldcs(b4 + p * n4 + q), u[p]));
+        __stcs(d4 + p * n4 + q, zero);
+      }
+    }
   }
 }
 
@@ -263,6 +314,22 @@ int launch_sum(const void* drift, long long L, const void* csr_off, const void* 
   strata_merge_sum_kernel<NC><<<(unsigned)blocks, SUM_THREADS, smem, stream>>>(
       (const float*)drift, L, (const int*)csr_off, (const int*)csr_slot, (const double*)recip,
       (double*)coords, (double*)upd, E, ecap, block_eps);
+  return (int)cudaGetLastError();
+}
+
+template <int NC>
+int launch_bcast(void* drift, void* base, long long L, const void* ep, const void* upd,
+                 int ecap, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long groups = (L / 4 + BCAST_THREADS - 1) / BCAST_THREADS;
+  const long long grid = (long long)sms * BCAST_BLOCKS_PER_SM;
+  const unsigned blocks = (unsigned)(groups < grid ? groups : grid);
+  if (blocks == 0) return (int)cudaSuccess;
+  strata_merge_bcast_kernel<NC><<<blocks, BCAST_THREADS, 0, stream>>>(
+      (float*)drift, (float*)base, L, (const int*)ep, (const double*)upd, ecap);
   return (int)cudaGetLastError();
 }
 
@@ -304,18 +371,17 @@ int strata_merge_sum(const void* drift, long long L, const void* csr_off,
   return (int)cudaErrorInvalidValue;
 }
 
+// L a multiple of 4; every pointer 16-byte aligned; 2D: ecap even.
 int strata_merge_bcast(void* drift, void* base, long long L, const void* ep,
                        const void* upd, int ecap, int nc, void* stream) {
-  const long long blocks = (L + MERGE_THREADS - 1) / MERGE_THREADS;
-  if (nc == 1)
-    strata_merge_bcast_kernel<1><<<(unsigned)blocks, MERGE_THREADS, 0, (cudaStream_t)stream>>>(
-        (float*)drift, (float*)base, L, (const int*)ep, (const double*)upd, ecap);
-  else if (nc == 2)
-    strata_merge_bcast_kernel<2><<<(unsigned)blocks, MERGE_THREADS, 0, (cudaStream_t)stream>>>(
-        (float*)drift, (float*)base, L, (const int*)ep, (const double*)upd, ecap);
-  else
+  const uintptr_t ptrs = (uintptr_t)drift | (uintptr_t)base | (uintptr_t)ep | (uintptr_t)upd;
+  if (L % 4 != 0 || (ptrs & 15) != 0 || (nc == 2 && ecap % 2 != 0))
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (nc == 1)
+    return launch_bcast<1>(drift, base, L, ep, upd, ecap, (cudaStream_t)stream);
+  if (nc == 2)
+    return launch_bcast<2>(drift, base, L, ep, upd, ecap, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

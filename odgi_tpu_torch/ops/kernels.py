@@ -12,19 +12,21 @@ Kernel (source)                     TPU kernel it replaces (odgi_tpu/ops/)
 strata_chunks_2d (strata_sgd.cu)    pallas_sgd.py _make_kernel_2d, chunk phase
 strata_chunks_1d                    pallas_sgd.py _make_kernel_1d, chunk phase
 strata_merge_sum                    pallas_sgd.py _merge_tiles_2d/_1d, sums
-strata_merge_bcast                  pallas_sgd.py _merge_tiles_2d/_1d, broadcast
+strata_merge_bcast                  pallas_sgd.py _merge_tiles_2d/_1d, broadcast;
+                                      pallas_sgd_xxl.py broadcast + zeroing passes
 strata_chunks_2d_stream             pallas_sgd_xl.py _run_chunks_2d (XL, XXL 2D)
   (strata_stream.cu)
 strata_chunks_1d_stream             pallas_sgd_xl.py _run_chunks_1d (XL, XXL 1D)
 strata_merge_sum_blocked            pallas_sgd_xxl.py scatter pass
   (strata_blocked.cu)
-strata_merge_bcast_blocked          pallas_sgd_xxl.py broadcast + zeroing passes
 strata_chunks_2d_levels             pallas_sgd.py _chunk_2d and the 2D chunk
   (strata_levels.cu)                  phases of _make_kernel_xl / _xxl
 strata_chunks_1d_levels             pallas_sgd.py _chunk_1d and the 1D chunk
   (strata_levels.cu)                  phases of _make_kernel_xl_1d / _xxl_1d
 The XL route's merge is strata_merge_sum / strata_merge_bcast, which have
-no node-width cap (the counterpart of XL's streamed full-width merge).
+no node-width cap (the counterpart of XL's streamed full-width merge); the
+XXL route's is strata_merge_sum_blocked / strata_merge_bcast: one pass over
+the slots serves every route.
 The chunk phase of every route is strata_chunks_2d_levels /
 strata_chunks_1d_levels; the chain kernels strata_chunks_2d / _1d and
 their stream twins compute the same drift and stay as their reference,
@@ -42,7 +44,7 @@ from pathlib import Path
 
 import torch
 
-from . import strata_sgd
+from . import strata_sgd, strata_xxl
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
@@ -64,14 +66,10 @@ SIGNATURES = {
     "strata_chunks_2d_stream": _STREAM_ARGS,
     "strata_chunks_1d_stream": _STREAM_ARGS,
     "strata_merge_sum_blocked": [P, LL, P, P, P, P, P, I, I, I, I, I, P],
-    "strata_merge_bcast_blocked": [P, P, LL, P, P, I, I, I, P, P, I, I, LL, P],
     "strata_chunks_2d_levels": [P, P, P, LL, P, P, I, P, P, I, P, P],
     "strata_chunks_1d_levels": [P, P, P, LL, P, P, I, P, P, I, P, P],
 }
 NAMES = tuple(SIGNATURES)
-# Shared memory a thread block may use on sm_90: the blocked broadcast
-# stages a node block's update there, which bounds a schedule's block size.
-MAX_SMEM_BYTES = 232_448
 
 LAUNCHES = {name: 0 for name in NAMES}
 
@@ -252,14 +250,22 @@ def strata_merge_sum(drift, mi, coords, upd):
 
 
 def strata_merge_bcast(drift, base, mi, upd):
-    """Broadcast the last merge's update into `base`; reset `drift`."""
+    """Broadcast the last merge's update into `base`; reset `drift`.  Every
+    route's broadcast: one pass over the slots, four a thread with 16-byte
+    accesses (so L % 4 == 0, the tensors 16-byte aligned and, in 2D, ecap
+    even: an endpoint's forward and reverse update are one 16-byte pair)."""
     if drift.device.type == "cpu":
         return strata_sgd.merge_bcast_plain(drift, base, mi, upd)
-    _check(dict(drift=drift, base=base, ep=mi.ep, upd=upd), drift.device)
+    tensors = dict(drift=drift, base=base, ep=mi.ep, upd=upd)
+    _check(tensors, drift.device)
     nc = upd.shape[0]
     L = drift.shape[1]
-    _require(base.shape == drift.shape and mi.ep.shape == (L,)
-             and upd.shape == (nc, mi.ecap), "broadcast shapes")
+    _require(base.shape == drift.shape and drift.shape[0] == (4 if nc == 2 else 1)
+             and mi.ep.shape == (L,) and upd.shape == (nc, mi.ecap), "broadcast shapes")
+    _require(L % 4 == 0 and (nc == 1 or mi.ecap % 2 == 0),
+             "L a multiple of 4; 2D: ecap even")
+    _require(all(t.data_ptr() % 16 == 0 for t in tensors.values()),
+             "drift, base, ep and upd 16-byte aligned")
     err = _fn("strata_merge_bcast")(
         _ptr(drift), _ptr(base), L, _ptr(mi.ep), _ptr(upd), int(mi.ecap),
         int(nc), _stream(drift.device))
@@ -339,7 +345,7 @@ def strata_chunks_1d_stream(drift, base, planes, od, sync, eta, cpi: int, g0: in
     _chunks("strata_chunks_1d_stream", 3, drift, base, planes, od, eta, cpi, g0, cgs, sync)
 
 
-def _check_schedule(drift, mi, bsch, nc: int, E: int) -> None:
+def _check_schedule(drift, mi, bsch, E: int) -> None:
     _check(dict(tile=bsch.tile, block=bsch.block, blk_off=bsch.blk_off), drift.device)
     K = bsch.num_entries
     _require(K > 0 and bsch.block.shape == (K,), "schedule entries")
@@ -347,8 +353,7 @@ def _check_schedule(drift, mi, bsch, nc: int, E: int) -> None:
     _require(bsch.num_blocks * bsch.bs >= E, "the blocks cover every endpoint")
     _require(0 < bsch.num_steps <= drift.shape[1] and mi.ep.shape == (drift.shape[1],),
              "step count within the planes")
-    _require(drift.shape[1] % strata_sgd.TILE == 0, "planes are whole tiles")
-    _require(nc * bsch.bs * 4 <= MAX_SMEM_BYTES, "a block's update fits shared memory")
+    _require(drift.shape[1] % strata_xxl.TILE == 0, "planes are whole tiles")
 
 
 def strata_merge_sum_blocked(drift, mi, bsch, coords, upd):
@@ -365,28 +370,9 @@ def strata_merge_sum_blocked(drift, mi, bsch, coords, upd):
     _require(drift.shape[0] == (4 if nc == 2 else 1), "drift planes")
     _require(upd.shape == (nc, mi.ecap) and mi.csr_off.shape == (E + 1,)
              and mi.recip.shape == (E,), "merge index shapes")
-    _check_schedule(drift, mi, bsch, nc, E)
+    _check_schedule(drift, mi, bsch, E)
     err = _fn("strata_merge_sum_blocked")(
         _ptr(drift), L, _ptr(mi.csr_off), _ptr(mi.csr_slot), _ptr(mi.recip),
         _ptr(coords), _ptr(upd), int(E), int(mi.ecap), int(nc), int(bsch.num_blocks),
         int(bsch.bs), _stream(drift.device))
     _launched("strata_merge_sum_blocked", err)
-
-
-def strata_merge_bcast_blocked(drift, base, mi, bsch, upd):
-    """Broadcast of the XXL route: the result of `strata_merge_bcast`, one
-    thread block per schedule entry."""
-    if drift.device.type == "cpu":
-        return strata_sgd.merge_bcast_blocked_plain(drift, base, mi, bsch, upd)
-    _check(dict(drift=drift, base=base, ep=mi.ep, upd=upd), drift.device)
-    nc = upd.shape[0]
-    E = mi.recip.shape[0]
-    L = drift.shape[1]
-    _require(base.shape == drift.shape and drift.shape[0] == (4 if nc == 2 else 1)
-             and upd.shape == (nc, mi.ecap), "broadcast shapes")
-    _check_schedule(drift, mi, bsch, nc, E)
-    err = _fn("strata_merge_bcast_blocked")(
-        _ptr(drift), _ptr(base), L, _ptr(mi.ep), _ptr(upd), int(E), int(mi.ecap),
-        int(nc), _ptr(bsch.tile), _ptr(bsch.block), int(bsch.num_entries),
-        int(bsch.bs), int(bsch.num_steps), _stream(drift.device))
-    _launched("strata_merge_bcast_blocked", err)

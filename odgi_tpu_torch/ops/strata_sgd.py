@@ -18,9 +18,9 @@ the same function, bit for bit:
 - ``"xl"`` (``_make_kernel_xl/_xl_1d``): the CSR merge too, which has no
   node cap;
 - ``"xxl"`` (``_make_kernel_xxl/_xxl_1d``): nodes relabeled by first visit
-  (``ops/strata_xxl.py``) and the blocked merges: a sum over the node
-  blocks' CSR spans and a broadcast that walks the (block, tile)
-  schedule; coordinates are relabeled back at the end.
+  (``ops/strata_xxl.py``) and the blocked sum over the node blocks' CSR
+  spans; coordinates are relabeled back at the end.
+Every route broadcasts with the same one pass over the slots.
 On every route the chunk phase runs by conflict levels
 (``ops/strata_levels.py``, ``strata_chunks_2d_levels`` /
 ``strata_chunks_1d_levels``), which gives the drift of the chain kernels
@@ -44,7 +44,7 @@ import torch
 from . import kernels, strata_levels
 from .strata_plan import CHUNK, LANE, P1_PATH, P1_POS, PATH, POS, POSEND, plan_run
 from .strata_route import ROUTES, graph_route
-from .strata_xxl import TILE, BlockSchedule, relabel, relabel_coords, unrelabel
+from .strata_xxl import BlockSchedule, relabel, relabel_coords, unrelabel
 
 _M32 = 0xFFFFFFFF
 
@@ -266,15 +266,6 @@ def merge_bcast_plain(drift, base, mi: "MergeIndex", upd):
     drift.zero_()
 
 
-def _block_entries(mi: "MergeIndex", bsch: BlockSchedule):
-    """The schedule's entries in order: per entry, the tile's slice of real
-    slots and the mask of those whose (forward) endpoint lies in the
-    entry's block."""
-    for t, b in zip(bsch.tile.tolist(), bsch.block.tolist()):
-        sl = slice(t * TILE, min((t + 1) * TILE, bsch.num_steps))
-        yield sl, torch.div(mi.ep[sl], bsch.bs, rounding_mode="floor") == b
-
-
 def merge_sum_blocked_plain(drift, mi: "MergeIndex", bsch: BlockSchedule, coords, upd):
     """`merge_sum_plain`, node block by node block of the schedule `bsch`,
     each over its span of the CSR (a block's endpoints own a contiguous run
@@ -301,24 +292,6 @@ def merge_sum_blocked_plain(drift, mi: "MergeIndex", bsch: BlockSchedule, coords
         u = acc[:E] * mi.recip
         upd[ch, :E] = u
         coords[ch] += u
-
-
-def merge_bcast_blocked_plain(drift, base, mi: "MergeIndex", bsch: BlockSchedule, upd):
-    """`merge_bcast_plain`, walking the schedule entry by entry: each real
-    slot takes its update in the entry of its endpoint's block; the pad
-    slots' drift is zeroed after."""
-    nc = upd.shape[0]
-    for sl, m in _block_entries(mi, bsch):
-        idx = mi.ep[sl][m]
-        if nc == 1:
-            base[0, sl][m] += upd[0][idx].to(torch.float32)
-        else:
-            base[0, sl][m] += upd[0][idx].to(torch.float32)
-            base[1, sl][m] += upd[0][idx ^ 1].to(torch.float32)
-            base[2, sl][m] += upd[1][idx].to(torch.float32)
-            base[3, sl][m] += upd[1][idx ^ 1].to(torch.float32)
-        drift[:, sl][:, m] = 0.0
-    drift[:, bsch.num_steps:] = 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -484,11 +457,9 @@ class StrataState:
         if self.route == "xxl":
             kernels.strata_merge_sum_blocked(self.drift, self.mi, self.bsch,
                                              self.coords, self.upd)
-            kernels.strata_merge_bcast_blocked(self.drift, self.base, self.mi,
-                                               self.bsch, self.upd)
         else:
             kernels.strata_merge_sum(self.drift, self.mi, self.coords, self.upd)
-            kernels.strata_merge_bcast(self.drift, self.base, self.mi, self.upd)
+        kernels.strata_merge_bcast(self.drift, self.base, self.mi, self.upd)
 
     def run(self) -> None:
         for gid in range(self.plan["groups"]):

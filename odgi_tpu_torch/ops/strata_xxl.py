@@ -4,11 +4,12 @@
 The counterpart of the host half of ``odgi_tpu/ops/pallas_sgd_xxl.py``
 (``_locality_order``, the relabel in ``path_sgd_2d_pallas_xxl`` /
 ``path_sgd_1d_pallas_xxl``, ``_block_geometry``, ``_build_schedule``).  The
-blocked merge kernels (``csrc/strata_blocked.cu``) split the endpoints into
-blocks of ``XXL_BS``; the broadcast walks, per block, the step tiles
-(TR*LANE slots) that hold one of its endpoints, and the sum folds each
-block's span of the merge CSR.  Relabeling nodes by first visit along the
-step table keeps a block's slots in few tiles whatever the input ids were.
+blocked sum (``csrc/strata_blocked.cu``) splits the endpoints into blocks
+of ``XXL_BS`` and folds each block's span of the merge CSR; the schedule
+lists, per block, the step tiles (TR*LANE slots) that hold one of its
+endpoints.  Relabeling nodes by first visit along the step table keeps a
+block's slots in few tiles, and gives neighbouring slots neighbouring
+endpoints, whatever the input ids were.
 """
 
 from __future__ import annotations
@@ -20,10 +21,8 @@ import torch
 
 from .strata_plan import LANE, TR, _pad_to
 
-# Endpoints per node block.  The broadcast kernel runs a thread block per
-# schedule entry and stages the block's f32 update in shared memory (2D:
-# 16 KB at 2048); larger blocks mean fewer entries but more to stage for
-# each.  (The TPU kernel's blocks hold 32,768.)  Tests shrink it.
+# Endpoints per node block; the blocked sum splits each over thread blocks
+# of 256 endpoints.  (The TPU kernel's blocks hold 32,768.)  Tests shrink it.
 XXL_BS = 2048
 # Slots per merge tile.
 TILE = TR * LANE

@@ -8,7 +8,8 @@ and division, so they round as the plain versions do; max |drift delta|
 over the scale <= 1e-6 (bit-equality expected).  The merge sums are f64 in
 ascending slot order, while the plain version's CUDA index_add_ adds in no
 fixed order: <= 1e-12 of the scale.  The stream and blocked kernels of the
-XL and XXL routes equal the resident kernels exactly.  The leveled 2D and
+XL and XXL routes equal the resident kernels exactly, and the broadcast,
+which every route runs, equals its plain version exactly.  The leveled 2D and
 1D chunk kernels equal the chain kernels exactly, strata_merge_sum equals
 the ascending-order loop merge_sum_ordered_plain exactly at every block
 size, and the blocked sum equals it too, at every node-block size.  The
@@ -239,11 +240,11 @@ def test_blocked_merges_equal_csr_merges(cuda, wide_graph, one_d, bs, monkeypatc
     cscale = float(c_p.abs().max()) + 1
     assert float((u_b - u_p).abs().max()) / cscale <= MERGE_TOL
 
-    d_b, b_b, d_k, b_k = (t.clone() for t in (st.drift, st.base, st.drift, st.base))
-    kernels.strata_merge_bcast_blocked(d_b, b_b, st.mi, st.bsch, u_k)
+    d_k, b_k, d_p, b_p = (t.clone() for t in (st.drift, st.base, st.drift, st.base))
     kernels.strata_merge_bcast(d_k, b_k, st.mi, u_k)
+    strata_sgd.merge_bcast_plain(d_p, b_p, st.mi, u_k)
     torch.cuda.synchronize()
-    assert torch.equal(b_b, b_k) and torch.equal(d_b, d_k) and not d_b.any()
+    assert torch.equal(b_k, b_p) and not d_k.any()
 
 
 @pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
@@ -269,7 +270,7 @@ def test_routes_equal_on_card(cuda, wide_graph, one_d, monkeypatch):
     on_cpu = run("resident", "cpu")
     assert np.abs(res - on_cpu).max() / (np.abs(on_cpu).max() + 1) <= CHUNK_TOL
     for n in ("strata_chunks_1d_levels" if one_d else "strata_chunks_2d_levels",
-              "strata_merge_sum_blocked", "strata_merge_bcast_blocked"):
+              "strata_merge_sum_blocked", "strata_merge_bcast"):
         assert kernels.LAUNCHES[n] > before[n]
     for n in ("strata_chunks_1d", "strata_chunks_1d_stream", "strata_chunks_2d",
               "strata_chunks_2d_stream"):
@@ -291,17 +292,13 @@ def test_new_wrappers_reject_bad_arguments(cuda, wide_graph):
     for bad in (dataclasses.replace(bs, tile=bs.tile.cpu()),
                 dataclasses.replace(bs, tile=bs.tile.long()),
                 dataclasses.replace(bs, block=bs.block[:-1]),
-                dataclasses.replace(bs, bs=bs.bs + 1),
-                dataclasses.replace(bs, bs=1 << 16)):
+                dataclasses.replace(bs, bs=bs.bs + 1)):
         with pytest.raises(ValueError):
             kernels.strata_merge_sum_blocked(st.drift, st.mi, bad, st.coords, st.upd)
-        with pytest.raises(ValueError):
-            kernels.strata_merge_bcast_blocked(st.drift, st.base, st.mi, bad, st.upd)
     with pytest.raises(ValueError):
         kernels.strata_merge_sum_blocked(st.drift.double(), st.mi, bs, st.coords, st.upd)
     with pytest.raises(ValueError):
-        kernels.strata_merge_bcast_blocked(st.drift, st.base[:1].contiguous(), st.mi, bs,
-                                           st.upd)
+        kernels.strata_merge_bcast(st.drift, st.base[:1].contiguous(), st.mi, st.upd)
 
 
 def _level_state(graph, device, route):
@@ -426,10 +423,9 @@ def test_leveled_1d_chunks_equal_chain_groups(cuda, long_graph, route):
         st.drift = d_l
         if route == "xxl":
             kernels.strata_merge_sum_blocked(st.drift, st.mi, st.bsch, st.coords, st.upd)
-            kernels.strata_merge_bcast_blocked(st.drift, st.base, st.mi, st.bsch, st.upd)
         else:
             kernels.strata_merge_sum(st.drift, st.mi, st.coords, st.upd)
-            kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)
+        kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)
     assert kernels.LAUNCHES["strata_chunks_1d_levels"] - before["strata_chunks_1d_levels"] \
         == p["groups"]
     assert kernels.levels_grid_blocks(one_d=True) >= torch.cuda.get_device_properties(
@@ -496,8 +492,7 @@ def test_blocked_sum_rejects_bad_arguments(cuda, wide_graph):
     st = _state(wide_graph, True, cuda, "xxl")
     bs = st.bsch
     for bad in (dataclasses.replace(bs, bs=bs.bs // 2),  # the blocks miss endpoints
-                dataclasses.replace(bs, bs=bs.bs - 1),
-                dataclasses.replace(bs, bs=1 << 16)):    # the broadcast cannot stage it
+                dataclasses.replace(bs, bs=bs.bs - 1)):
         with pytest.raises(ValueError):
             kernels.strata_merge_sum_blocked(st.drift, st.mi, bad, st.coords, st.upd)
     with pytest.raises(ValueError):
@@ -552,3 +547,53 @@ def test_sharded_one_rank_nccl_equals_simulation(cuda, graph):
     finally:
         torch.distributed.destroy_process_group()
     assert torch.equal(nccl, sim)
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+@pytest.mark.parametrize("route", ["resident", "xl", "xxl"])
+def test_bcast_equals_plain(cuda, wide_graph, route, one_d):
+    """The one-pass broadcast on each route's state, with a random update
+    table (zero past the real endpoints, as the sums leave it) and nonzero
+    drift: base bit-equal to merge_bcast_plain's, drift zero, pad slots'
+    base unchanged."""
+    st = _state(wide_graph, one_d, cuda, route)
+    E, S = st.mi.recip.shape[0], wide_graph.num_steps
+    rng = np.random.default_rng(13)
+    upd = np.zeros(tuple(st.upd.shape))
+    upd[:, :E] = rng.normal(size=(upd.shape[0], E)) * 10.0
+    st.upd.copy_(torch.from_numpy(upd))
+    st.drift.fill_(1.0)
+    d_k, b_k, d_p, b_p = (t.clone() for t in (st.drift, st.base, st.drift, st.base))
+    before = kernels.LAUNCHES["strata_merge_bcast"]
+    kernels.strata_merge_bcast(d_k, b_k, st.mi, st.upd)
+    strata_sgd.merge_bcast_plain(d_p, b_p, st.mi, st.upd)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["strata_merge_bcast"] == before + 1
+    assert torch.equal(b_k, b_p) and not d_k.any()
+    assert torch.equal(b_k[:, S:], st.base[:, S:])
+    assert not torch.equal(b_k[:, :S], st.base[:, :S])
+
+
+def test_bcast_rejects_misaligned_upd(cuda, wide_graph):
+    """2D gathers an endpoint's forward and reverse update as one 16-byte
+    pair, so an update table whose row 1 starts off a 16-byte boundary (an
+    odd ecap, or a table 8 bytes into its storage) is refused, as are
+    planes whose L is not a multiple of 4."""
+    st = _state(wide_graph, False, cuda)
+    E = st.mi.recip.shape[0]
+    odd = dataclasses.replace(st.mi, ecap=E + 3)
+    with pytest.raises(ValueError):
+        kernels.strata_merge_bcast(st.drift, st.base, odd,
+                                   torch.zeros((2, E + 3), dtype=torch.float64, device=cuda))
+    shifted = torch.zeros(2 * st.mi.ecap + 1, dtype=torch.float64, device=cuda)[1:]
+    with pytest.raises(ValueError):
+        kernels.strata_merge_bcast(st.drift, st.base, st.mi, shifted.view(2, st.mi.ecap))
+    L = st.drift.shape[1]
+    short = dataclasses.replace(st.mi, ep=st.mi.ep[:L - 2].contiguous())
+    with pytest.raises(ValueError):
+        kernels.strata_merge_bcast(st.drift[:, :L - 2].contiguous(),
+                                   st.base[:, :L - 2].contiguous(), short, st.upd)
+    before = kernels.LAUNCHES["strata_merge_bcast"]
+    kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)  # the aligned table runs
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["strata_merge_bcast"] == before + 1

@@ -8,8 +8,7 @@ not the identity.
 
 - `locality_order`, the relabel, `block_geometry` and the schedule's rows
   0-4 equal the JAX package's byte for byte.
-- The blocked plain merges equal the CSR plain merges exactly, and a
-  schedule that misses an entry shows up as a difference.
+- The blocked plain sum equals the CSR plain sums exactly.
 - The "xxl" route equals the port's "resident" route exactly; it is within
   1e-6 of the coordinate scale of the exact twins and within 1e-5 of the
   JAX XXL kernels (their f32 + TwoSum coordinates and bf16-pass merge sums,
@@ -179,33 +178,6 @@ def test_blocked_merges_equal_csr_merges(graphs, one_d, bs):
     strata_sgd.merge_sum_blocked_plain(st.drift, st.mi, bsch, c_b, u_b)
     strata_sgd.merge_sum_plain(st.drift, st.mi, c_p, u_p)
     assert torch.equal(c_b, c_p) and torch.equal(u_b, u_p)
-
-    b_b, b_p = st.base.clone(), st.base.clone()
-    d_b, d_p = st.drift.clone(), st.drift.clone()
-    strata_sgd.merge_bcast_blocked_plain(d_b, b_b, st.mi, bsch, u_b)
-    strata_sgd.merge_bcast_plain(d_p, b_p, st.mi, u_b)
-    assert torch.equal(b_b, b_p) and not d_b.any()
-
-
-@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
-def test_schedule_fault_shows_on_cpu(graphs, one_d):
-    """Dropping one entry from the schedule changes the blocked broadcast
-    (the sum reads the node blocks' CSR spans, not the tiles)."""
-    _, gt = graphs
-    st, _ = _random_state(gt, one_d, 4)
-    bs = st.bsch
-    k = bs.num_entries // 2
-    keep = torch.ones(bs.num_entries, dtype=torch.bool)
-    keep[k] = False
-    b = int(bs.block[k])
-    off = bs.blk_off.clone()
-    off[b + 1:] -= 1
-    broken = dataclasses.replace(bs, tile=bs.tile[keep], block=bs.block[keep], blk_off=off)
-    b_b, b_p = st.base.clone(), st.base.clone()
-    d_b, d_p = st.drift.clone(), st.drift.clone()
-    strata_sgd.merge_bcast_blocked_plain(d_b, b_b, st.mi, broken, st.upd)
-    strata_sgd.merge_bcast_plain(d_p, b_p, st.mi, st.upd)
-    assert not torch.equal(b_b, b_p) and d_b.any()
 
 
 # ---------------------------------------------------------------------------
