@@ -21,6 +21,20 @@ Phases, each printing one line or more:
      quality and plan gates (the resident route); the Y sort and the layout
      again with their chunk phases forced onto the chain kernels give the
      same order and coordinates, bit for bit;
+ 4b. options, on the smoke graph of phase 4: the leveled kernels' tracking
+     instances against the untracked kernels (bit-equal drift, timed in
+     turns) and the plain versions (bit-equal Delta_max) on the first
+     groups of the full plans; the Y sort and the layout in turns with and
+     without -j; both with a delta of 1e-30 (order and coordinates
+     bit-equal to phase 4's) and with one picked from that run's own
+     Delta_max values (stopping at the predicted iteration, bit-equal to
+     the untracked state run group by group up to it); a Y sort with path
+     0 pinned (-H; the batched path: pinned positions unchanged bit for
+     bit, nt-distance below its start); a layout with 30 .lay snapshots
+     (-u; batched), also timed without them; a layout of every other path
+     (-f; resident, bit-equal to the same run on the kept graph); Y and
+     the layout of a 1,000-step graph (batched); and one batched 2D batch
+     timed and its CUDA kernels counted with torch.profiler;
   5. the stream kernels and the blocked sum against their plain versions
      and against the resident kernels, the broadcast against its plain
      version (bit for bit, beside the times of the designs it replaced),
@@ -74,8 +88,8 @@ import torch
 
 import odgi_tpu_torch as ot
 from odgi_tpu_torch.algorithms import groom, layout, path_sgd_sort, topological
-from odgi_tpu_torch.ops import (kernels, strata_levels, strata_plan, strata_route, strata_sgd,
-                                strata_xl, strata_xxl)
+from odgi_tpu_torch.ops import (batched_sgd, kernels, sgd, strata_levels, strata_plan,
+                                strata_route, strata_sgd, strata_xl, strata_xxl)
 from odgi_tpu_torch.ops.sgd import derive_config_1d, derive_config_2d
 from odgi_tpu_torch.parallel import sharded_strata
 
@@ -121,6 +135,9 @@ STREAM = ("strata_chunks_2d_stream", "strata_chunks_1d_stream")
 BLOCKED = ("strata_merge_sum_blocked",)
 LEVELS_2D, LEVELS_1D = "strata_chunks_2d_levels", "strata_chunks_1d_levels"
 LEVELS = {False: LEVELS_2D, True: LEVELS_1D}  # by one_d
+# The leveled kernels' tracking instances (delta early stop), counted apart.
+TRACK_2D, TRACK_1D = kernels.TRACKED[LEVELS_2D], kernels.TRACKED[LEVELS_1D]
+TRACKS = {False: TRACK_2D, True: TRACK_1D}
 # The chain kernels: off the main path, launched only to hold the leveled
 # kernels bit-equal and to time old against new.
 CHAIN = ("strata_chunks_2d", "strata_chunks_2d_stream", "strata_chunks_1d",
@@ -134,6 +151,9 @@ ROUTE_KERNELS = {
 }
 SHARDED_KERNELS = (LEVELS_2D, "strata_merge_sum", "strata_merge_bcast")  # once a group each
 FULL_GROUPS = 2  # groups of a full plan run on the leveled and the chain kernels
+STOP_MARGIN = 1e-3  # an interior delta stop lies this far (relative) below every earlier one
+SNAPSHOTS = 30      # -u: one .lay an iteration of the default 2D schedule
+SMALL = (1_000, 200, 250)  # steps, nodes, steps a path: under 1,024 steps, the batched path
 REPLACES = {
     "strata_chunks_2d": "odgi_tpu/ops/pallas_sgd.py:1105",
     "strata_chunks_1d": "odgi_tpu/ops/pallas_sgd.py:1158",
@@ -144,6 +164,8 @@ REPLACES = {
     "strata_merge_sum_blocked": "odgi_tpu/ops/pallas_sgd_xxl.py:212",
     LEVELS_2D: "odgi_tpu/ops/pallas_sgd.py:1105",
     LEVELS_1D: "odgi_tpu/ops/pallas_sgd.py:1158",
+    TRACK_2D: "odgi_tpu/ops/pallas_sgd.py:1105",
+    TRACK_1D: "odgi_tpu/ops/pallas_sgd.py:1158",
 }
 ALSO_REPLACES = {
     "strata_chunks_2d_stream": ["odgi_tpu/ops/pallas_sgd_xxl.py:212"],
@@ -171,7 +193,9 @@ SOURCES = {**{n: "odgi_tpu_torch/csrc/strata_sgd.cu" for n in RESIDENT},
            **{n: "odgi_tpu_torch/csrc/strata_stream.cu" for n in STREAM},
            **{n: "odgi_tpu_torch/csrc/strata_blocked.cu" for n in BLOCKED},
            LEVELS_2D: "odgi_tpu_torch/csrc/strata_levels.cu",
-           LEVELS_1D: "odgi_tpu_torch/csrc/strata_levels.cu"}
+           LEVELS_1D: "odgi_tpu_torch/csrc/strata_levels.cu",
+           TRACK_2D: "odgi_tpu_torch/csrc/strata_levels.cu",
+           TRACK_1D: "odgi_tpu_torch/csrc/strata_levels.cu"}
 
 
 def fail(msg: str) -> None:
@@ -686,18 +710,21 @@ class KernelTimes:
         self.label = label
         self.events = {n: {"1d": [], "2d": []} for n in kernels.NAMES}
         self.spun = {n: {"1d": [], "2d": []} for n in kernels.NAMES}
-        self.orig = {n: getattr(kernels, n) for n in kernels.NAMES}
+        self.orig = {n: getattr(kernels, n) for n in kernels.SIGNATURES}
 
     def install(self) -> None:
-        def wrap(name, fn, shape_of):
-            def timed_call(*a):
+        def wrap(wrapper, fn, shape_of):
+            def timed_call(*a, **kw):
+                # a leveled wrapper given dmax launches its tracking instance
+                name = (kernels.TRACKED[wrapper] if kw.get("dmax") is not None
+                        else wrapper)
                 tag = shape_of(a)
                 i = len(self.events[name][tag]) + len(self.spun[name][tag])
                 spin = i % SPIN_EVERY == SPIN_EVERY // 2
                 if spin:
                     torch.cuda._sleep(BUSY_CYCLES)
                 t = Timer()
-                fn(*a)
+                fn(*a, **kw)
                 (self.spun if spin else self.events)[name][tag].append(t.stop())
             return timed_call
 
@@ -712,7 +739,7 @@ class KernelTimes:
             LEVELS_2D: lambda a: "2d",
             LEVELS_1D: lambda a: "1d",
         }
-        for n in kernels.NAMES:
+        for n in kernels.SIGNATURES:
             setattr(kernels, n, wrap(n, self.orig[n], dim[n]))
 
     def uninstall(self) -> None:
@@ -954,7 +981,393 @@ def phase_smoke(gfa_path: str, tmp: str, dev, rec: Record) -> tuple:
     if not out["stress_after"] <= STRESS_AFTER_MAX:
         fail(f"stress after layout {out['stress_after']} > {STRESS_AFTER_MAX}")
     add_bounds(rec, "smoke", g, p1, g2, p2, "resident")
-    return out, g2
+    return out, g2, dict(g=g, g_Y=g_lv, g2=g2, coords=coords, p1=p1, p2=p2)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: the PG-SGD options on the smoke graph (delta, -H, -u, -f) and the
+# batched path on a graph under 1,024 steps
+# ---------------------------------------------------------------------------
+
+
+def compare_tracked(st, gid: int, rec: Record, key: str) -> dict:
+    """Group `gid` through the leveled kernel, its tracking instance and the
+    plain version with dmax, on the same inputs: the tracking drift equals
+    the untracked kernel's bit for bit, its Delta_max word the plain
+    version's bit for bit, and its drift the plain one's within CHUNK_TOL.
+    Untracked and tracked launches are timed in turns (u, t, t, u).
+    Continues from the tracked state."""
+    one_d, p = st.one_d, st.plan
+    fn, track = getattr(kernels, LEVELS[one_d]), TRACKS[one_d]
+    plain = strata_sgd.chunks_1d_levels_plain if one_d else strata_sgd.chunks_2d_levels_plain
+    args = (st.base, st.planes, st.od, st.eta, p["cpi"], st.perm, st.lvl_rows[gid])
+    drifts = [st.drift.clone() for _ in range(5)]
+    words = [torch.zeros(1, dtype=torch.float32, device=st.drift.device) for _ in range(3)]
+    u_ms = [timed(fn, drifts[0], *args)]
+    t_ms = [timed(lambda: fn(drifts[1], *args, dmax=words[0]))]
+    t_ms.append(timed(lambda: fn(drifts[2], *args, dmax=words[1])))
+    u_ms.append(timed(fn, drifts[3], *args))
+    p_ms = timed(lambda: plain(drifts[4], *args, dmax=words[2]))
+    for d in drifts[1:4]:
+        if not torch.equal(d, drifts[0]):
+            fail(f"{track} {key} group {gid}: drift differs from the untracked kernel's")
+    for w in words[:2]:
+        if not torch.equal(w, words[2]):
+            fail(f"{track} {key} group {gid}: Delta_max {float(w)!r} != plain "
+                 f"{float(words[2])!r}")
+    scale = float(st.base.abs().max()) + 1.0
+    err = max(float((drifts[1] - drifts[4]).abs().max()), float((words[0] - words[2]).abs().max()))
+    rec.add("err", track, key, err)
+    rec.add("plain_ms", track, key, p_ms)
+    if not err / scale <= CHUNK_TOL:
+        fail(f"{track} {key} group {gid}: max|drift delta|/scale {err / scale:.3e} > {CHUNK_TOL}")
+    st.drift = drifts[1]
+    kernels.strata_merge_sum(st.drift, st.mi, st.coords, st.upd)
+    kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)
+    return dict(key=key, group=gid, levels=int(st.lvl_rows[gid].shape[0] - 1),
+                untracked_ms=u_ms, tracked_ms=t_ms, plain_ms=p_ms, delta_max=float(words[0]))
+
+
+def borrow_times(rec: Record, src: str, dst: str) -> None:
+    """Plain and library times of path `src` as those of path `dst`: the
+    same graph, plans and kernels."""
+    for n in kernels.NAMES:
+        for table in (rec.plain_ms, rec.library_ms):
+            for tag in ("1d", "2d"):
+                if f"{src}/{tag}" in table[n]:
+                    table[n][f"{dst}/{tag}"] = list(table[n][f"{src}/{tag}"])
+
+
+def add_track_bounds(rec: Record, label: str, p1: dict, p2: dict) -> None:
+    """Bounds of a tracked path: the untracked kernels' (add_bounds) and,
+    for the tracking instances, the leveled kernel's plus one f32 word a
+    group."""
+    for p, one_d, tag in ((p1, True, "1d"), (p2, False, "2d")):
+        rec.bounds[TRACKS[one_d]][f"{label}/{tag}"] = [
+            dict(b, bytes=b["bytes"] + 4) for b in chunk_bounds(p, one_d)]
+
+
+def interior_stop(dm: list, lo: int) -> int:
+    """The first iteration k >= lo, before the last, whose Delta_max lies
+    STOP_MARGIN (relative) below every earlier one's: no f32 noise moves a
+    stop there."""
+    for k in range(lo, len(dm) - 1):
+        if all(dm[k] <= (1 - STOP_MARGIN) * v for v in dm[:k]):
+            return k
+    fail(f"no interior stop iteration in {dm}")
+
+
+def by_hand(g, cfg, init, one_d: bool, iterations: int, dev) -> np.ndarray:
+    """The untracked resident state of (g, cfg) after `iterations`
+    iterations, its merge groups run one by one: X (N,) or (2N, 2) f64."""
+    st = strata_sgd.StrataState.build(g, cfg, init, one_d, dev)
+    for gid in range(iterations * st.merges_per_iteration()):
+        st.run_group(gid)
+    return (st.coords[0] if one_d else st.coords.T).cpu().numpy()
+
+
+def delta_runs(label: str, g, g2, d1: float, d2: float, dev, rec: Record) -> tuple:
+    """sort_pipeline("Y") of `g` and layout_graph of `g2` with delta d1 /
+    d2, counted: (out, Y-sorted graph, packed coordinates)."""
+    state = {}
+
+    def run():
+        out = {}
+        t0 = time.perf_counter()
+        gy = ot.sort_pipeline(g, "Y", sgd_overrides=dict(delta=d1), device=dev)
+        out["sort_Y_s"] = sync_wall(t0)
+        out["sort"] = dict(sgd.LAST_RUN)
+        t0 = time.perf_counter()
+        c = ot.layout_graph(g2, derive_config_2d(g2, delta=d2), device=dev)
+        out["layout_s"] = sync_wall(t0)
+        out["layout"] = dict(sgd.LAST_RUN)
+        state.update(gy=gy, c=c)
+        return out
+
+    out = counted(label, rec, run)
+    for what in ("sort", "layout"):
+        if out[what]["route"] != "resident":
+            fail(f"{label} {what}: route {out[what]['route']}, expected resident")
+    return out, state["gy"], state["c"]
+
+
+def check_delta_launches(out: dict, label: str, groups: dict) -> None:
+    """A tracked path launched the tracking instances once a group it ran
+    and never the untracked leveled kernels."""
+    for one_d, tag in ((True, "1d"), (False, "2d")):
+        want = groups[tag]
+        if out["launches"][TRACKS[one_d]] != want or out["launches"][LEVELS[one_d]] != 0:
+            fail(f"{label}: {TRACKS[one_d]} {out['launches'][TRACKS[one_d]]} / "
+                 f"{LEVELS[one_d]} {out['launches'][LEVELS[one_d]]} launches for {want} groups")
+
+
+def same_graph(a, b) -> bool:
+    return bool(np.array_equal(a.node_id, b.node_id)
+                and np.array_equal(a.step_handle, b.step_handle))
+
+
+def batch_profile(g, dev) -> dict:
+    """One 2D batch of the batched path on `g` at its default batch:
+    device ms behind a spin kernel, and the CUDA kernels it launches as
+    torch.profiler counts them (None where the profiler sees no device
+    event)."""
+    cfg = derive_config_2d(g)
+    data = batched_sgd.SgdData.build(g, cfg.theta, cfg.space, cfg.space_max,
+                                     cfg.space_quantization_step, device=dev)
+    x = torch.as_tensor(ot.init_layout(g, "d").astype(np.float32), device=dev)
+    gen = batched_sgd.make_generator(cfg, dev)
+    eta = torch.tensor(np.float32(10.0), device=dev)
+
+    def one_batch():
+        pairs, _ = batched_sgd.sample_pairs(batched_sgd.draw_words(gen, cfg.batch_size, dev), 0,
+                                            data, cfg, False)
+        return batched_sgd.update_2d(x, pairs, eta)
+
+    one_batch()
+    ms = [timed(one_batch) for _ in range(5)]
+    kernels_per_batch = None
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            one_batch()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events() if getattr(e, "device_type", None) is not None
+                and e.device_type.name == "CUDA")
+        kernels_per_batch = n or None
+    except Exception as exc:  # the profiler is untried on the card's machine
+        say("profiler", error=repr(exc))
+    return dict(batch_size=cfg.batch_size, batch_ms=sum(ms) / len(ms), batch_ms_all=ms,
+                kernels_per_batch=kernels_per_batch)
+
+
+def phase_options(smoke: dict, sm: dict, tmp: str, dev, rec: Record) -> None:
+    g, g_Y, g2, coords4, p1, p2 = (sm[k] for k in ("g", "g_Y", "g2", "coords", "p1", "p2"))
+    cfg1, cfg2 = derive_config_1d(g), derive_config_2d(g2)
+    groups = {"1d": p1["groups"], "2d": p2["groups"]}
+
+    # the tracking instances against the untracked kernels and their
+    # plain versions on the first groups of the smoke plans
+    for one_d, gr, cfg, init in ((True, g, cfg1, g.node_offset.astype(np.float32)),
+                                 (False, g2, cfg2, ot.init_layout(g2, "d"))):
+        st = strata_sgd.StrataState.build(gr, cfg, init, one_d, dev)
+        warm_up(st)
+        getattr(kernels, LEVELS[one_d])(st.drift.clone(), st.base, st.planes, st.od, st.eta,
+                                        st.plan["cpi"], st.perm, st.lvl_rows[0][:2],
+                                        dmax=st.dmax[:1].clone())
+        for gid in range(FULL_GROUPS):
+            say("tracked_vs_untracked",
+                **compare_tracked(st, gid, rec, f"smoke/{'1d' if one_d else '2d'}"))
+        del st
+
+    # walls with and without the per-iteration host read (uncounted), in
+    # turns: untracked, tracked, tracked, untracked
+    walls = {"sort_Y": {"untracked": [], "tracked": []},
+             "layout": {"untracked": [], "tracked": []}}
+    for kind in ("untracked", "tracked", "tracked", "untracked"):
+        d = 1e-30 if kind == "tracked" else 0.0
+        t0 = time.perf_counter()
+        ot.sort_pipeline(g, "Y", sgd_overrides=dict(delta=d), device=dev)
+        walls["sort_Y"][kind].append(sync_wall(t0))
+        t0 = time.perf_counter()
+        ot.layout_graph(g2, derive_config_2d(g2, delta=d), device=dev)
+        walls["layout"][kind].append(sync_wall(t0))
+    say("delta_walls", **walls)
+
+    # delta 1e-30: never stops; the phase-4 order and coordinates
+    out, gy, c = delta_runs("opt-tiny", g, g2, 1e-30, 1e-30, dev, rec)
+    check_delta_launches(out, "opt-tiny", groups)
+    dm1, dm2 = out["sort"]["delta_max"], out["layout"]["delta_max"]
+    out["equal_to_phase4"] = dict(sort_Y=same_graph(gy, g_Y),
+                                  layout=bool(np.array_equal(c, coords4)))
+    say("main_path", path="opt-tiny", **out)
+    if len(dm1) != cfg1.iter_max or len(dm2) != cfg2.iter_max:
+        fail(f"opt-tiny: {len(dm1)} / {len(dm2)} iterations, expected all")
+    if not all(out["equal_to_phase4"].values()):
+        fail(f"opt-tiny: differs from the untracked runs of phase 4 {out['equal_to_phase4']}")
+    add_bounds(rec, "opt-tiny", g, p1, g2, p2, "resident")
+    add_track_bounds(rec, "opt-tiny", p1, p2)
+    borrow_times(rec, "smoke", "opt-tiny")
+
+    # an interior delta from the recorded values: the predicted stop, and
+    # the untracked state after that iteration, run group by group
+    k1, k2 = interior_stop(dm1, cfg1.iter_max // 2), interior_stop(dm2, cfg2.iter_max // 2)
+    d1, d2 = dm1[k1] * (1 + STOP_MARGIN / 5), dm2[k2] * (1 + STOP_MARGIN / 5)
+    out, gy, c = delta_runs("opt-stop", g, g2, d1, d2, dev, rec)
+    mpi1, mpi2 = p1["cpi"] // p1["cgs"], p2["cpi"] // p2["cgs"]
+    check_delta_launches(out, "opt-stop", {"1d": (k1 + 1) * mpi1, "2d": (k2 + 1) * mpi2})
+    x_hand = by_hand(g, cfg1, g.node_offset.astype(np.float32), True, k1 + 1, dev)
+    c_hand = by_hand(g2, cfg2, ot.init_layout(g2, "d"), False, k2 + 1, dev)
+    out["predicted"] = dict(sort=dict(iteration=k1 + 1, delta=d1),
+                            layout=dict(iteration=k2 + 1, delta=d2))
+    out["equal_to_by_hand"] = dict(
+        sort_Y=same_graph(gy, g.apply_ordering(path_sgd_sort.order_from_x(g, x_hand),
+                                               compact_ids=True)),
+        layout=bool(np.array_equal(c, layout.pack_components(g2, c_hand))))
+    out["nt_after_Y"] = ot.sum_of_path_node_distances(gy, device=dev).all_nt_space
+    out["stress_after"] = ot.sum_of_path_node_distances(
+        g2, (c[:, 0], c[:, 1]), device=dev).all_2d_by_nucleotides
+    say("main_path", path="opt-stop", **out)
+    if (out["sort"]["iterations"], out["layout"]["iterations"]) != (k1 + 1, k2 + 1):
+        fail(f"opt-stop: stopped after {out['sort']['iterations']} / "
+             f"{out['layout']['iterations']} iterations, predicted {k1 + 1} / {k2 + 1}")
+    if out["sort"]["delta_max"] != dm1[:k1 + 1] or out["layout"]["delta_max"] != dm2[:k2 + 1]:
+        fail("opt-stop: Delta_max values differ from the 1e-30 run's")
+    if not all(out["equal_to_by_hand"].values()):
+        fail(f"opt-stop: differs from the state run by hand {out['equal_to_by_hand']}")
+    add_bounds(rec, "opt-stop", g, p1, g2, p2, "resident")
+    add_track_bounds(rec, "opt-stop", p1, p2)
+    borrow_times(rec, "smoke", "opt-stop")
+
+    # -H: pin path 0's nodes (the batched path)
+    state = {}
+
+    def run_pin():
+        orig = path_sgd_sort.path_sgd_1d
+
+        def capture(*a, **kw):
+            state["x"] = orig(*a, **kw)
+            return state["x"]
+
+        path_sgd_sort.path_sgd_1d = capture
+        try:
+            t0 = time.perf_counter()
+            state["gp"] = ot.sort_pipeline(g, "Y", target_paths=[0], device=dev)
+            out = dict(sort_Y_s=sync_wall(t0), sort=dict(sgd.LAST_RUN))
+        finally:
+            path_sgd_sort.path_sgd_1d = orig
+        return out
+
+    out = counted("opt-pin", rec, run_pin, levels=())
+    pin = path_sgd_sort.target_pin_mask(g, [0])
+    x, x0 = state["x"].cpu().numpy(), g.node_offset.astype(np.float32).astype(np.float64)
+    out.update(pinned=int(pin.sum()), nodes=g.num_nodes, nt_before=smoke["nt_before"],
+               nt_after=ot.sum_of_path_node_distances(state["gp"], device=dev).all_nt_space,
+               pinned_unchanged=bool(np.array_equal(x[pin], x0[pin])),
+               free_moved=bool((x[~pin] != x0[~pin]).any()),
+               batches=out["sort"]["iterations"] * cfg1.num_batches)
+    out["wall_ms_per_batch"] = out["sort_Y_s"] * 1e3 / out["batches"]
+    say("main_path", path="opt-pin", **out)
+    if out["sort"]["route"] != "batched" or any(out["launches"].values()):
+        fail(f"opt-pin: route {out['sort']['route']}, launches {out['launches']}")
+    if not (out["pinned_unchanged"] and out["free_moved"]):
+        fail("opt-pin: pinned positions moved or no free node moved")
+    if not out["nt_after"] < out["nt_before"]:
+        fail(f"opt-pin: nt-distance {out['nt_after']} not below its start {out['nt_before']}")
+
+    # -u: a .lay snapshot an iteration (the batched path)
+    snap_s = []
+
+    def snapshot(it, coords):
+        t0 = time.perf_counter()
+        ot.save_layout(coords, os.path.join(tmp, f"snap{it + 1}.lay"), device=dev)
+        snap_s.append(time.perf_counter() - t0)
+
+    def run_snap():
+        t0 = time.perf_counter()
+        c = ot.layout_graph(g2, snapshot_cb=snapshot, device=dev)
+        state["c"] = c
+        return dict(layout_s=sync_wall(t0), layout=dict(sgd.LAST_RUN))
+
+    out = counted("opt-snap", rec, run_snap, levels=())
+    files = sorted(f for f in os.listdir(tmp) if f.startswith("snap") and f.endswith(".lay"))
+    last = ot.load_layout(os.path.join(tmp, f"snap{cfg2.iter_max}.lay"))
+    c = state["c"]
+    scale = float(np.abs(c).max())
+    c0 = ot.init_layout(g2, "d")
+    out.update(snapshots=len(files), snapshot_s=sum(snap_s),
+               last_snapshot_err=float(np.abs(layout.pack_components(g2, last) - c).max()),
+               scale=scale, stress_before=smoke["stress_before"],
+               stress_after=ot.sum_of_path_node_distances(
+                   g2, (c[:, 0], c[:, 1]), device=dev).all_2d_by_nucleotides,
+               batches=out["layout"]["iterations"] * cfg2.num_batches)
+    out["wall_ms_per_batch"] = (out["layout_s"] - out["snapshot_s"]) * 1e3 / out["batches"]
+    # the same batched layout without the snapshots' host reads (uncounted)
+    t0 = time.perf_counter()
+    batched_sgd.path_sgd_2d_batched(g2, c0, cfg2, device=dev)
+    out["without_snapshots_s"] = sync_wall(t0)
+    say("main_path", path="opt-snap", **out)
+    if out["layout"]["route"] != "batched" or any(out["launches"].values()):
+        fail(f"opt-snap: route {out['layout']['route']}, launches {out['launches']}")
+    if len(files) != SNAPSHOTS or len(snap_s) != SNAPSHOTS:
+        fail(f"opt-snap: {len(files)} .lay snapshots, expected {SNAPSHOTS}")
+    if not (np.isfinite(c).all() and out["last_snapshot_err"] <= LAY_TOL * scale):
+        fail(f"opt-snap: last snapshot {out['last_snapshot_err']} off the result")
+    if not out["stress_after"] < out["stress_before"]:
+        fail(f"opt-snap: stress {out['stress_after']} not below {out['stress_before']}")
+
+    # -f: a layout of half the paths (the resident route on the kept graph)
+    use = list(range(0, g2.num_paths, 2))
+    kept = g2.keep_paths(use)
+
+    def run_subset():
+        t0 = time.perf_counter()
+        state["c"] = ot.layout_graph(g2, use_paths=use, device=dev)
+        return dict(layout_s=sync_wall(t0), layout=dict(sgd.LAST_RUN))
+
+    out = counted("opt-subset", rec, run_subset, levels=("2d",))
+    p_sub = strata_plan.plan_run(kept, cfg2, one_d=False)
+    c = state["c"]
+    direct = layout.pack_components(g2, strata_sgd.path_sgd_2d_strata(
+        kept, ot.init_layout(g2, "d"), cfg2, dev).cpu().numpy())
+    out.update(paths=len(use), steps=kept.num_steps, groups=p_sub["groups"],
+               equal_to_kept_graph_run=bool(np.array_equal(c, direct)),
+               stress_kept_after=ot.sum_of_path_node_distances(
+                   kept, (c[:, 0], c[:, 1]), device=dev).all_2d_by_nucleotides,
+               stress_kept_before=ot.sum_of_path_node_distances(
+                   kept, (c0[:, 0], c0[:, 1]), device=dev).all_2d_by_nucleotides)
+    say("main_path", path="opt-subset", **out)
+    if out["layout"]["route"] != "resident" or out["launches"][LEVELS_2D] != p_sub["groups"]:
+        fail(f"opt-subset: route {out['layout']['route']}, launches {out['launches']}")
+    if not out["equal_to_kept_graph_run"]:
+        fail("opt-subset: differs from the same run on the kept paths' graph")
+    if not out["stress_kept_after"] < out["stress_kept_before"]:
+        fail(f"opt-subset: stress on the kept paths {out['stress_kept_after']} not below "
+             f"{out['stress_kept_before']}")
+    st = strata_sgd.StrataState.build(kept, cfg2, c0, False, dev)
+    warm_up(st)
+    compare_group(st, 0, rec, "opt-subset/2d")
+    del st
+    rec.bounds[LEVELS_2D]["opt-subset/2d"] = chunk_bounds(p_sub, False)
+    rec.bounds["strata_merge_sum"]["opt-subset/2d"] = [merge_sum_bound(kept, False)]
+    rec.bounds["strata_merge_bcast"]["opt-subset/2d"] = [
+        merge_bcast_bound(kept, p_sub["data"].num_slots, False)]
+
+    # a graph under 1,024 steps: the batched path in 1D and 2D
+    gs = shuffled_graph(*SMALL)
+
+    def run_small():
+        out = dict(nt_before=ot.sum_of_path_node_distances(gs, device=dev).all_nt_space)
+        t0 = time.perf_counter()
+        gsy = ot.sort_pipeline(gs, "Y", device=dev)
+        out["sort_Y_s"] = sync_wall(t0)
+        out["sort"] = dict(sgd.LAST_RUN)
+        out["nt_after"] = ot.sum_of_path_node_distances(gsy, device=dev).all_nt_space
+        c0s = ot.init_layout(gsy, "d")
+        out["stress_before"] = ot.sum_of_path_node_distances(
+            gsy, (c0s[:, 0], c0s[:, 1]), device=dev).all_2d_by_nucleotides
+        t0 = time.perf_counter()
+        cs = ot.layout_graph(gsy, device=dev)
+        out["layout_s"] = sync_wall(t0)
+        out["layout"] = dict(sgd.LAST_RUN)
+        out["stress_after"] = ot.sum_of_path_node_distances(
+            gsy, (cs[:, 0], cs[:, 1]), device=dev).all_2d_by_nucleotides
+        out["finite"] = bool(np.isfinite(cs).all())
+        return out
+
+    out = counted("opt-small", rec, run_small, levels=())
+    out.update(steps=gs.num_steps, nodes=gs.num_nodes,
+               batches=dict(sort=out["sort"]["iterations"] * derive_config_1d(gs).num_batches,
+                            layout=out["layout"]["iterations"] * derive_config_2d(gs).num_batches))
+    say("main_path", path="opt-small", **out)
+    if (out["sort"]["route"], out["layout"]["route"]) != ("batched", "batched") \
+            or any(out["launches"].values()):
+        fail(f"opt-small: routes {out['sort']['route']} / {out['layout']['route']}")
+    if not (out["finite"] and out["nt_after"] < out["nt_before"]
+            and out["stress_after"] < out["stress_before"]):
+        fail(f"opt-small: quality did not improve {out}")
+
+    say("batched_batch", graph="smoke-sorted", **batch_profile(g2, dev))
 
 
 # ---------------------------------------------------------------------------
@@ -1397,7 +1810,9 @@ def main() -> int:
         write_smoke_gfa(gfa, SMOKE_STEPS, SMOKE_NODES, SMOKE_PATH_STEPS)
         say("gfa", seconds=time.perf_counter() - t0, bytes=os.path.getsize(gfa))
         phase_kernels(ot.parse_gfa(gfa, device=dev), dev, rec)
-        smoke, g_smoke = phase_smoke(gfa, tmp, dev, rec)
+        smoke, g_smoke, smoke_state = phase_smoke(gfa, tmp, dev, rec)
+        phase_options(smoke, smoke_state, tmp, dev, rec)
+        del smoke_state
 
         t0 = time.perf_counter()
         g_xl = shuffled_graph(XL_STEPS, XL_NODES, XL_PATH_STEPS)

@@ -31,12 +31,16 @@ __device__ __forceinline__ uint32_t coin_hash(uint32_t i, uint32_t sel, uint32_t
 // D < CHUNK, and the barriers order them as the twin does.  No atomics,
 // deterministic.  gl is the chunk's global index (its coins and eta row);
 // o is the window start slot.  The caller orders this chunk's B adds
-// before any later chunk that shares a slot with it.
-template <int THREADS>
-__device__ __forceinline__ void chunk_2d(float* drift, const float* __restrict__ base,
-                                         const int* __restrict__ planes, long long L,
-                                         long long o, long long D, float lr, int gl) {
+// before any later chunk that shares a slot with it.  With TRACK the
+// thread returns the max of |delta| over its valid pairs (the reference's
+// Delta_max, odgi_tpu/ops/pallas_sgd.py:763-769), else 0 and the
+// instance is the untracked body unchanged.
+template <int THREADS, bool TRACK = false>
+__device__ __forceinline__ float chunk_2d(float* drift, const float* __restrict__ base,
+                                          const int* __restrict__ planes, long long L,
+                                          long long o, long long D, float lr, int gl) {
   constexpr int PPT = CHUNK / THREADS;
+  float dm = 0.0f;
   const int tid = threadIdx.x;
   const int* pos0 = planes;          // pos
   const int* pos1 = planes + L;      // pos_end
@@ -76,6 +80,7 @@ __device__ __forceinline__ void chunk_2d(float* drift, const float* __restrict__
     const float mag = sqrtf(dx * dx + dy * dy);
     const float delta = mu * (mag - term) * 0.5f;
     const float r = valid ? delta / mag : 0.0f;
+    if constexpr (TRACK) dm = fmaxf(dm, valid ? fabsf(delta) : 0.0f);
     xa_i[k] = ixa;
     xb_i[k] = ixb;
     dxa_old[k] = dxa;
@@ -95,6 +100,7 @@ __device__ __forceinline__ void chunk_2d(float* drift, const float* __restrict__
     drift[xb_i[k]] = drift[xb_i[k]] + rx[k];
     drift[xb_i[k] + 2 * L] = drift[xb_i[k] + 2 * L] + ry[k];
   }
+  return dm;
 }
 
 // One 1D chunk (the twin's _twin_chunks_1d body) run by a block of THREADS
@@ -102,12 +108,13 @@ __device__ __forceinline__ void chunk_2d(float* drift, const float* __restrict__
 // is valid only if also pos_a != pos_b, and its weight is 1/d; the A slot
 // subtracts rr and the B slot adds it.  Read phase, A adds, B adds, as
 // chunk_2d; a pair keeps two floats across the barriers (its B slot is
-// recomputed).
-template <int THREADS>
-__device__ __forceinline__ void chunk_1d(float* drift, const float* __restrict__ base,
-                                         const int* __restrict__ planes, long long L,
-                                         long long o, long long D, float lr) {
+// recomputed).  TRACK as chunk_2d (:820-823); valid includes di != 0.
+template <int THREADS, bool TRACK = false>
+__device__ __forceinline__ float chunk_1d(float* drift, const float* __restrict__ base,
+                                          const int* __restrict__ planes, long long L,
+                                          long long o, long long D, float lr) {
   constexpr int PPT = CHUNK / THREADS;
+  float dm = 0.0f;
   const int tid = threadIdx.x;
   const int* pos = planes;
   const int* path = planes + 2 * L;
@@ -133,6 +140,7 @@ __device__ __forceinline__ void chunk_1d(float* drift, const float* __restrict__
     const float delta = mu * (mag - term) * 0.5f;
     da_old[k] = da;
     rr[k] = valid ? delta / mag * dx : 0.0f;
+    if constexpr (TRACK) dm = fmaxf(dm, valid ? fabsf(delta) : 0.0f);
   }
   __syncthreads();
 #pragma unroll
@@ -144,6 +152,7 @@ __device__ __forceinline__ void chunk_1d(float* drift, const float* __restrict__
     const long long b = o + D + tid + k * THREADS;
     drift[b] = drift[b] + rr[k];
   }
+  return dm;
 }
 
 }  // namespace strata

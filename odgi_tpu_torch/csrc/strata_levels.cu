@@ -52,6 +52,14 @@
 // 15-60 levels of about 50-190 chunks, a 1D group 9-22 levels of about
 // 36-180.
 //
+// Delta early stop (-j).  Each kernel has a second instance, TRACK, which
+// also writes the group's Delta_max, the max of |delta| over the group's
+// valid pairs: the `dmax` output the reference's kernels give with `track`
+// (odgi_tpu/ops/pallas_sgd.py:763-769, :820-823, out-spec :1241-1244).
+// Each thread keeps the max over its pairs, each block reduces it and
+// raises the group's word by one atomicMax; the drift is the untracked
+// instance's, bit for bit.  A run without delta never launches it.
+//
 // Every entry launches on the given stream, allocates nothing and returns
 // the CUDA error of the launch.
 
@@ -66,8 +74,8 @@ using strata::LANE;
 
 constexpr int LEVEL_THREADS = 1024;  // 4 pairs a thread, as the chain kernels
 constexpr int MAX_DEVICES = 64;
-// Occupancy cache slots, one a kernel.
-enum { SLOT_2D = 0, SLOT_1D, NSLOTS };
+// Occupancy cache slots, one a kernel instance.
+enum { SLOT_2D = 0, SLOT_1D, SLOT_2D_TRACK, SLOT_1D_TRACK, NSLOTS };
 
 __device__ __forceinline__ void grid_barrier(unsigned int* counter) {
   __syncthreads();
@@ -83,13 +91,36 @@ __device__ __forceinline__ void grid_barrier(unsigned int* counter) {
   __syncthreads();
 }
 
+// The tracking instances' Delta_max: the block's max of its threads' `dm`
+// (a warp fmaxf shuffle, then one warp over the warps' maxima), written by
+// one atomicMax on the float's bit pattern into *dmax.  Every value is a
+// non-negative float, whose bit patterns order as the floats do, so the
+// result is exact and does not depend on the order the blocks arrive in.
+__device__ __forceinline__ void block_max_into(float dm, float* dmax) {
+  __shared__ float warp_max[LEVEL_THREADS / 32];
+  for (int off = 16; off > 0; off >>= 1) dm = fmaxf(dm, __shfl_xor_sync(0xffffffffu, dm, off));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_max[warp] = dm;
+  __syncthreads();
+  if (warp == 0) {
+    dm = warp_max[lane];
+    for (int off = 16; off > 0; off >>= 1) dm = fmaxf(dm, __shfl_xor_sync(0xffffffffu, dm, off));
+    if (lane == 0 && dm > 0.0f) atomicMax(reinterpret_cast<int*>(dmax), __float_as_int(dm));
+  }
+}
+
+// TRACK: also reduce the group's Delta_max into *dmax (the reference's
+// `track` output of _make_kernel_2d / _1d); without it the instance is the
+// untracked kernel.
+template <bool TRACK>
 __global__ void __launch_bounds__(LEVEL_THREADS, 1)
 strata_chunks_2d_levels_kernel(float* drift, const float* __restrict__ base,
                                const int* __restrict__ planes, long long L,
                                const int* __restrict__ od, const float* __restrict__ eta,
                                int cpi, const int* __restrict__ perm,
                                const int* __restrict__ lvl_off, int nlev,
-                               unsigned int* counter) {
+                               unsigned int* counter, float* dmax) {
+  float dm = 0.0f;
   for (int lv = 0; lv < nlev; ++lv) {
     const int k1 = lvl_off[lv + 1];
     for (int k = lvl_off[lv] + blockIdx.x; k < k1; k += gridDim.x) {
@@ -97,35 +128,47 @@ strata_chunks_2d_levels_kernel(float* drift, const float* __restrict__ base,
       const long long o = (long long)od[2 * gl] * LANE;
       const long long D = od[2 * gl + 1];
       // chunks of one level share no slot: no barrier between them
-      strata::chunk_2d<LEVEL_THREADS>(drift, base, planes, L, o, D, eta[gl / cpi], gl);
+      const float m = strata::chunk_2d<LEVEL_THREADS, TRACK>(drift, base, planes, L, o, D,
+                                                             eta[gl / cpi], gl);
+      if constexpr (TRACK) dm = fmaxf(dm, m);
     }
     if (lv + 1 < nlev) grid_barrier(counter);
   }
+  if constexpr (TRACK) block_max_into(dm, dmax);
 }
 
+template <bool TRACK>
 __global__ void __launch_bounds__(LEVEL_THREADS, 1)
 strata_chunks_1d_levels_kernel(float* drift, const float* __restrict__ base,
                                const int* __restrict__ planes, long long L,
                                const int* __restrict__ od, const float* __restrict__ eta,
                                int cpi, const int* __restrict__ perm,
                                const int* __restrict__ lvl_off, int nlev,
-                               unsigned int* counter) {
+                               unsigned int* counter, float* dmax) {
+  float dm = 0.0f;
   for (int lv = 0; lv < nlev; ++lv) {
     const int k1 = lvl_off[lv + 1];
     for (int k = lvl_off[lv] + blockIdx.x; k < k1; k += gridDim.x) {
       const int gl = perm[k];
       const long long o = (long long)od[2 * gl] * LANE;
       const long long D = od[2 * gl + 1];
-      strata::chunk_1d<LEVEL_THREADS>(drift, base, planes, L, o, D, eta[gl / cpi]);
+      const float m = strata::chunk_1d<LEVEL_THREADS, TRACK>(drift, base, planes, L, o, D,
+                                                             eta[gl / cpi]);
+      if constexpr (TRACK) dm = fmaxf(dm, m);
     }
     if (lv + 1 < nlev) grid_barrier(counter);
   }
+  if constexpr (TRACK) block_max_into(dm, dmax);
 }
 
 // The leveled kernel of a cache slot.
 const void* level_kernel(int slot) {
-  return slot == SLOT_2D ? (const void*)strata_chunks_2d_levels_kernel
-                         : (const void*)strata_chunks_1d_levels_kernel;
+  switch (slot) {
+    case SLOT_2D: return (const void*)strata_chunks_2d_levels_kernel<false>;
+    case SLOT_1D: return (const void*)strata_chunks_1d_levels_kernel<false>;
+    case SLOT_2D_TRACK: return (const void*)strata_chunks_2d_levels_kernel<true>;
+    default: return (const void*)strata_chunks_1d_levels_kernel<true>;
+  }
 }
 
 // Blocks of the persistent grid of the slot's kernel on the current device,
@@ -154,14 +197,17 @@ int grid_blocks(int slot, int* out) {
   return 0;
 }
 
+// dmax null: the untracked instance; else the tracking one, reducing into
+// *dmax.
 int launch_levels(int slot, void* drift, const void* base, const void* planes, long long L,
                   const void* od, const void* eta, int cpi, const void* perm,
-                  const void* lvl_off, int nlev, void* counter, void* stream) {
+                  const void* lvl_off, int nlev, void* counter, void* dmax, void* stream) {
+  if (dmax != nullptr) slot = slot == SLOT_2D ? SLOT_2D_TRACK : SLOT_1D_TRACK;
   int blocks = 0;
   const int err = grid_blocks(slot, &blocks);
   if (err != 0) return err;
-  void* args[] = {&drift, &base, &planes, &L,       &od,      &eta,
-                  &cpi,   &perm, &lvl_off, &nlev,   &counter};
+  void* args[] = {&drift, &base,    &planes, &L,       &od,   &eta,
+                  &cpi,   &perm,    &lvl_off, &nlev,  &counter, &dmax};
   const cudaError_t lerr = cudaLaunchCooperativeKernel(level_kernel(slot), dim3(blocks),
                                                        dim3(LEVEL_THREADS), args, 0,
                                                        (cudaStream_t)stream);
@@ -173,28 +219,32 @@ int launch_levels(int slot, void* drift, const void* base, const void* planes, l
 
 extern "C" {
 
-// Blocks of the persistent grid of the 2D (one_d 0) or 1D kernel on the
-// current device (0 on error).
+// Blocks of the persistent grid of the untracked 2D (one_d 0) or 1D kernel
+// on the current device (0 on error).
 int strata_chunks_levels_blocks(int one_d) {
   int blocks = 0;
   return grid_blocks(one_d ? SLOT_1D : SLOT_2D, &blocks) == 0 ? blocks : 0;
 }
 
 // perm: the run's chunks sorted by (group, level, index); lvl_off: nlev + 1
-// offsets into perm, the group's levels; counter: one scratch word.
+// offsets into perm, the group's levels; counter: one scratch word; dmax:
+// null, or the group's f32 Delta_max word (the tracking instance raises it
+// to the group's max |delta|; the caller zeroes it once).
 int strata_chunks_2d_levels(void* drift, const void* base, const void* planes, long long L,
                             const void* od, const void* eta, int cpi, const void* perm,
-                            const void* lvl_off, int nlev, void* counter, void* stream) {
+                            const void* lvl_off, int nlev, void* counter, void* dmax,
+                            void* stream) {
   return launch_levels(SLOT_2D, drift, base, planes, L, od, eta, cpi, perm, lvl_off, nlev,
-                       counter, stream);
+                       counter, dmax, stream);
 }
 
 // As strata_chunks_2d_levels.
 int strata_chunks_1d_levels(void* drift, const void* base, const void* planes, long long L,
                             const void* od, const void* eta, int cpi, const void* perm,
-                            const void* lvl_off, int nlev, void* counter, void* stream) {
+                            const void* lvl_off, int nlev, void* counter, void* dmax,
+                            void* stream) {
   return launch_levels(SLOT_1D, drift, base, planes, L, od, eta, cpi, perm, lvl_off, nlev,
-                       counter, stream);
+                       counter, dmax, stream);
 }
 
 }  // extern "C"

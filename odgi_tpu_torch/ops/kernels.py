@@ -23,6 +23,9 @@ strata_chunks_2d_levels             pallas_sgd.py _chunk_2d and the 2D chunk
   (strata_levels.cu)                  phases of _make_kernel_xl / _xxl
 strata_chunks_1d_levels             pallas_sgd.py _chunk_1d and the 1D chunk
   (strata_levels.cu)                  phases of _make_kernel_xl_1d / _xxl_1d
+strata_chunks_2d_levels_track       pallas_sgd.py _make_kernel_2d with track
+  (strata_levels.cu, TRACK)           (the dmax output, delta early stop)
+strata_chunks_1d_levels_track       pallas_sgd.py _make_kernel_1d with track
 The XL route's merge is strata_merge_sum / strata_merge_bcast, which have
 no node-width cap (the counterpart of XL's streamed full-width merge); the
 XXL route's is strata_merge_sum_blocked / strata_merge_bcast: one pass over
@@ -66,10 +69,15 @@ SIGNATURES = {
     "strata_chunks_2d_stream": _STREAM_ARGS,
     "strata_chunks_1d_stream": _STREAM_ARGS,
     "strata_merge_sum_blocked": [P, LL, P, P, P, P, P, I, I, I, I, I, P],
-    "strata_chunks_2d_levels": [P, P, P, LL, P, P, I, P, P, I, P, P],
-    "strata_chunks_1d_levels": [P, P, P, LL, P, P, I, P, P, I, P, P],
+    "strata_chunks_2d_levels": [P, P, P, LL, P, P, I, P, P, I, P, P, P],
+    "strata_chunks_1d_levels": [P, P, P, LL, P, P, I, P, P, I, P, P, P],
 }
-NAMES = tuple(SIGNATURES)
+# The tracking instances of the leveled kernels (a group's Delta_max for
+# delta early stop): launched by the same wrappers when given `dmax`, and
+# counted apart.
+TRACKED = {"strata_chunks_2d_levels": "strata_chunks_2d_levels_track",
+           "strata_chunks_1d_levels": "strata_chunks_1d_levels_track"}
+NAMES = tuple(SIGNATURES) + tuple(TRACKED.values())
 
 LAUNCHES = {name: 0 for name in NAMES}
 
@@ -169,6 +177,7 @@ def _check(tensors: dict, device) -> None:
         "recip": torch.float64, "coords": torch.float64, "upd": torch.float64,
         "sync": torch.int32, "tile": torch.int32, "block": torch.int32,
         "blk_off": torch.int32, "perm": torch.int32, "lvl_off": torch.int32,
+        "dmax": torch.float32,
     }
     for name, t in tensors.items():
         _require(t.device == device, f"{name} is on {t.device}, not {device}")
@@ -287,9 +296,14 @@ def strata_chunks_2d_stream(drift, base, planes, od, sync, eta, cpi: int, g0: in
 _BARRIER: dict = {}
 
 
-def _levels(name: str, nplanes: int, drift, base, planes, od, eta, cpi, perm, lvl_off) -> None:
-    _check(dict(drift=drift, base=base, planes=planes, od=od, eta=eta, perm=perm,
-                lvl_off=lvl_off), drift.device)
+def _levels(name: str, nplanes: int, drift, base, planes, od, eta, cpi, perm, lvl_off,
+            dmax=None) -> None:
+    tensors = dict(drift=drift, base=base, planes=planes, od=od, eta=eta, perm=perm,
+                   lvl_off=lvl_off)
+    if dmax is not None:
+        tensors["dmax"] = dmax
+        _require(dmax.numel() == 1, "dmax is the group's one word")
+    _check(tensors, drift.device)
     L = drift.shape[1]
     _require(drift.shape == base.shape and drift.shape[0] == (4 if nplanes == 4 else 1),
              "drift/base shape")
@@ -305,30 +319,37 @@ def _levels(name: str, nplanes: int, drift, base, planes, od, eta, cpi, perm, lv
                                                        device=drift.device)
     err = _fn(name)(
         _ptr(drift), _ptr(base), _ptr(planes), L, _ptr(od), _ptr(eta), int(cpi), _ptr(perm),
-        _ptr(lvl_off), int(lvl_off.shape[0] - 1), _ptr(counter), _stream(drift.device))
-    _launched(name, err)
+        _ptr(lvl_off), int(lvl_off.shape[0] - 1), _ptr(counter),
+        ctypes.c_void_p(None if dmax is None else dmax.data_ptr()), _stream(drift.device))
+    _launched(name if dmax is None else TRACKED[name], err)
 
 
-def strata_chunks_2d_levels(drift, base, planes, od, eta, cpi: int, perm, lvl_off):
+def strata_chunks_2d_levels(drift, base, planes, od, eta, cpi: int, perm, lvl_off,
+                            dmax=None):
     """Chunk phase of one 2D merge group by conflict levels, in place on
     `drift`: level l runs the chunks perm[lvl_off[l]:lvl_off[l+1]] at once
     (``ops/strata_levels.py``), the levels in order.  perm (chunks,) i32
     holds every chunk of the run; lvl_off (levels + 1,) i32 is the group's
-    row of offsets into it.  Same result as `strata_chunks_2d`."""
+    row of offsets into it.  Same result as `strata_chunks_2d`.  With
+    `dmax` (a one-word f32 tensor, zero or a max so far) the tracking
+    instance also raises it to the group's max |delta| over valid pairs."""
     if drift.device.type == "cpu":
         return strata_sgd.chunks_2d_levels_plain(drift, base, planes, od, eta, cpi, perm,
-                                                 lvl_off)
-    _levels("strata_chunks_2d_levels", 4, drift, base, planes, od, eta, cpi, perm, lvl_off)
+                                                 lvl_off, dmax)
+    _levels("strata_chunks_2d_levels", 4, drift, base, planes, od, eta, cpi, perm, lvl_off,
+            dmax)
 
 
-def strata_chunks_1d_levels(drift, base, planes, od, eta, cpi: int, perm, lvl_off):
+def strata_chunks_1d_levels(drift, base, planes, od, eta, cpi: int, perm, lvl_off,
+                            dmax=None):
     """Chunk phase of one 1D merge group by conflict levels, in place on
-    `drift`, as `strata_chunks_2d_levels`.  Same result as
+    `drift`, as `strata_chunks_2d_levels` (`dmax` too).  Same result as
     `strata_chunks_1d`."""
     if drift.device.type == "cpu":
         return strata_sgd.chunks_1d_levels_plain(drift, base, planes, od, eta, cpi, perm,
-                                                 lvl_off)
-    _levels("strata_chunks_1d_levels", 3, drift, base, planes, od, eta, cpi, perm, lvl_off)
+                                                 lvl_off, dmax)
+    _levels("strata_chunks_1d_levels", 3, drift, base, planes, od, eta, cpi, perm, lvl_off,
+            dmax)
 
 
 def levels_grid_blocks(one_d: bool = False) -> int:

@@ -1,18 +1,20 @@
 """Path-guided SGD (1D sort + 2D layout): schedule, configs and dispatch.
 
-The counterpart of ``odgi_tpu/ops/sgd.py`` for the strata path.  The
-learning-rate schedule and the derived configs are exact copies, so a
-config built here equals the JAX package's field for field (less the
-fields that only steer the TPU's batched path).  ``path_sgd_1d`` and
-``path_sgd_2d`` run the strata scheme of ``ops/strata_sgd.py`` on the route
-``ops/strata_route.py`` picks (resident, XL or XXL kernels); the parts of
-the reference that take another path raise ``NotImplementedError`` and
-name the ROADMAP item that will port them.
+The counterpart of ``odgi_tpu/ops/sgd.py``.  The learning-rate schedule
+and the derived configs are exact copies, so a config built here equals
+the JAX package's field for field (less the fields that only steer XLA and
+the TPU's MXU).  ``path_sgd_1d`` and ``path_sgd_2d`` route a run as the
+reference does: the strata scheme of ``ops/strata_sgd.py`` on the route
+``ops/strata_route.py`` picks (resident, XL or XXL kernels), or the
+batched path of ``ops/batched_sgd.py`` for small graphs, pinning,
+snapshots and delta early stop past the resident route.  ``not_ported``
+names the ROADMAP item of a part that is still to come.
 """
 
 from __future__ import annotations
 
 import math
+import sys
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -61,11 +63,27 @@ class SgdConfig:
     space_max: int = 100
     space_quantization_step: int = 100
     cooling_start: float = 0.5
+    batch_size: int = 32768
     seed: int = 9399220
 
     @property
     def first_cooling_iteration(self) -> int:
         return int(math.floor(self.cooling_start * self.iter_max))
+
+    @property
+    def num_batches(self) -> int:
+        """Batches an iteration of the batched path."""
+        return max(1, -(-self.min_term_updates // self.batch_size))
+
+
+def _clamp_batch(batch_size: int, num_steps: int, epoch_div: int = 4) -> int:
+    """The batched path's batch: at most the step count (the permuted
+    table's walk wraps once) and at most S / epoch_div, so that an epoch
+    spans several coordinate snapshots (1D takes epoch_div 4, 2D 2)."""
+    if num_steps <= 0:
+        return 1
+    cap = max(1, num_steps // epoch_div) if num_steps >= 2 * epoch_div else num_steps
+    return max(1, min(batch_size, cap))
 
 
 def derive_config_1d(g: GraphTensors, **overrides) -> SgdConfig:
@@ -91,6 +109,7 @@ def derive_config_1d(g: GraphTensors, **overrides) -> SgdConfig:
         cooling_start=0.5,
     )
     cfg.update(overrides)
+    cfg["batch_size"] = _clamp_batch(cfg.get("batch_size", SgdConfig.batch_size), sum_steps, 4)
     return SgdConfig(**cfg)
 
 
@@ -111,30 +130,36 @@ def derive_config_2d(g: GraphTensors, **overrides) -> SgdConfig:
         cooling_start=0.5,
     )
     cfg.update(overrides)
+    cfg["batch_size"] = _clamp_batch(cfg.get("batch_size", SgdConfig.batch_size), sum_steps, 2)
     return SgdConfig(**cfg)
 
 
-def _strata_route(g: GraphTensors, cfg: SgdConfig, one_d: bool, use_paths,
-                  pin_nodes, snapshot_cb) -> str:
-    """The strata route of this run; raise for every case the reference
-    sends down another path."""
-    from .strata_route import MIN_STRATA_STEPS, graph_route
+DELTA_NOTE = ("[odgi_tpu_torch::sgd] note: delta early-stop (-j) with a graph beyond the "
+              "resident kernels falls back to the slower batched path")
+
+# What the last run of path_sgd_1d / path_sgd_2d did: its route
+# ("resident", "xl", "xxl" or "batched"), the iterations it ran and, with
+# delta > 0, each iteration's Delta_max.
+LAST_RUN: dict = {}
+
+
+def _run_route(g: GraphTensors, cfg: SgdConfig, one_d: bool, use_paths, pin_nodes,
+               snapshot_cb):
+    """(graph, route) of a run, as the reference dispatches it: PG-SGD on a
+    subset of the paths runs the graph of the kept paths (the config stays
+    the caller's); pinning and snapshots take the batched path; so does
+    delta early stop past the resident route, after a note on stderr."""
+    from .strata_route import graph_route
 
     if use_paths is not None and sorted(use_paths) != list(range(g.num_paths)):
-        raise not_ported("use_paths (PG-SGD on a subset of the paths)", 14)
-    if pin_nodes is not None:
-        raise not_ported("target-path pinning (-H, the batched SGD path)", 9)
-    if snapshot_cb is not None:
-        raise not_ported("per-iteration snapshots (-u, the batched SGD path)", 9)
-    if cfg.delta > 0:
-        raise not_ported("delta early stop (-j)", 8)
+        g = g.keep_paths(sorted(use_paths))
+    if pin_nodes is not None or snapshot_cb is not None:
+        return g, "batched"
     route = graph_route(g, cfg, one_d)
-    if route == "batched":
-        raise not_ported(
-            f"graphs under {MIN_STRATA_STEPS} steps or with path positions of "
-            "2^30 and more (the batched SGD path)", 9
-        )
-    return route
+    if cfg.delta > 0 and route != "resident":
+        print(DELTA_NOTE, file=sys.stderr)
+        route = "batched"
+    return g, route
 
 
 def path_sgd_1d(
@@ -149,16 +174,26 @@ def path_sgd_1d(
     """1D PG-SGD; returns the final X positions, f64 (N,) on `device`.
 
     X starts at the cumulative node lengths in current order unless `x0`
-    is given.  Skips when no path has more than one step."""
+    is given.  Skips when no path has more than one step.  `use_paths`
+    runs on those paths only (-f); `pin_nodes` (bool (N,)) keeps those
+    nodes where they start (-H); `snapshot_cb(it, X)` gets the host f64
+    positions after every iteration (-u); cfg.delta > 0 stops early (-j)."""
     dev = resolve_device(device)
     if cfg is None:
         cfg = derive_config_1d(g)
     if not (g.path_step_count > 1).any():
         return torch.as_tensor(g.node_offset.astype(np.float64), device=dev)
-    route = _strata_route(g, cfg, True, use_paths, pin_nodes, snapshot_cb)
+    g_run, route = _run_route(g, cfg, True, use_paths, pin_nodes, snapshot_cb)
+    LAST_RUN.clear()
+    if route == "batched":
+        from .batched_sgd import path_sgd_1d_batched
+
+        out = path_sgd_1d_batched(g_run, cfg, x0, pin_nodes, snapshot_cb, dev)
+        LAST_RUN.update(route=route, iterations=out["iterations"], delta_max=out["delta_max"])
+        return out["x"]
     from .strata_sgd import path_sgd_1d_strata
 
-    return path_sgd_1d_strata(g, cfg, x0, dev, route=route)
+    return path_sgd_1d_strata(g_run, cfg, x0, dev, route=route)
 
 
 def path_sgd_2d(
@@ -171,13 +206,21 @@ def path_sgd_2d(
     device=None,
 ) -> torch.Tensor:
     """2D PG-SGD layout from the (2N, 2) initial coordinates `coords0`;
-    returns f64 (2N, 2) coordinates on `device`."""
+    returns f64 (2N, 2) coordinates on `device`.  The options as
+    `path_sgd_1d` (pinning keeps both endpoints of a pinned node)."""
     dev = resolve_device(device)
     if cfg is None:
         cfg = derive_config_2d(g)
     if not (g.path_step_count > 1).any():
         return torch.as_tensor(np.asarray(coords0, np.float64), device=dev)
-    route = _strata_route(g, cfg, False, use_paths, pin_nodes, snapshot_cb)
+    g_run, route = _run_route(g, cfg, False, use_paths, pin_nodes, snapshot_cb)
+    LAST_RUN.clear()
+    if route == "batched":
+        from .batched_sgd import path_sgd_2d_batched
+
+        out = path_sgd_2d_batched(g_run, coords0, cfg, pin_nodes, snapshot_cb, dev)
+        LAST_RUN.update(route=route, iterations=out["iterations"], delta_max=out["delta_max"])
+        return out["x"]
     from .strata_sgd import path_sgd_2d_strata
 
-    return path_sgd_2d_strata(g, coords0, cfg, dev, route=route)
+    return path_sgd_2d_strata(g_run, coords0, cfg, dev, route=route)

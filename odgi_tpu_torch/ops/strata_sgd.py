@@ -21,6 +21,10 @@ the same function, bit for bit:
   (``ops/strata_xxl.py``) and the blocked sum over the node blocks' CSR
   spans; coordinates are relabeled back at the end.
 Every route broadcasts with the same one pass over the slots.
+With delta early stop (-j, ``StrataState.run(delta)``) the chunk phase runs
+the leveled kernels' tracking instances, which also write each group's
+Delta_max (the reference's ``track`` output), and the run stops after the
+first iteration whose maximum is at most delta.
 On every route the chunk phase runs by conflict levels
 (``ops/strata_levels.py``, ``strata_chunks_2d_levels`` /
 ``strata_chunks_1d_levels``), which gives the drift of the chain kernels
@@ -42,6 +46,7 @@ import numpy as np
 import torch
 
 from . import kernels, strata_levels
+from .sgd import LAST_RUN
 from .strata_plan import CHUNK, LANE, P1_PATH, P1_POS, PATH, POS, POSEND, plan_run
 from .strata_route import ROUTES, graph_route
 from .strata_xxl import BlockSchedule, relabel, relabel_coords, unrelabel
@@ -90,10 +95,17 @@ def chunk_coins(gl: int, device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _chunk_2d(drift, base, planes, o: int, D: int, lr, gl: int) -> None:
+def _track(dmax, delta, valid) -> None:
+    """Raise the one-word `dmax` to the max of |delta| over the valid
+    pairs (the reference's Delta_max)."""
+    if dmax is not None:
+        torch.maximum(dmax, torch.where(valid, delta.abs(), 0.0).max(), out=dmax)
+
+
+def _chunk_2d(drift, base, planes, o: int, D: int, lr, gl: int, dmax=None) -> None:
     """One 2D chunk, global index `gl` (its coins and eta row), window start
     slot `o` and jump `D`, in place on `drift`: every pair reads both
-    windows, then the A adds, then the B adds."""
+    windows, then the A adds, then the B adds.  `dmax`: see `_track`."""
     pos0, pos1, path = planes[POS], planes[POSEND], planes[PATH]
     A = slice(o, o + CHUNK)
     B = slice(o + D, o + D + CHUNK)
@@ -119,6 +131,7 @@ def _chunk_2d(drift, base, planes, o: int, D: int, lr, gl: int) -> None:
     # CPU can be an ulp off)
     mag = torch.sqrt((dx * dx + dy * dy).to(torch.float64)).to(torch.float32)
     delta = mu * (mag - term) * 0.5
+    _track(dmax, delta, valid)
     r = torch.where(valid, delta / mag, 0.0)
     rx = r * dx
     ry = r * dy
@@ -133,30 +146,33 @@ def _chunk_2d(drift, base, planes, o: int, D: int, lr, gl: int) -> None:
     ])
 
 
-def chunks_2d_plain(drift, base, planes, od, eta, cpi: int, g0: int, cgs: int):
+def chunks_2d_plain(drift, base, planes, od, eta, cpi: int, g0: int, cgs: int, dmax=None):
     """Chunks g0..g0+cgs-1 of the 2D scheme, in place on `drift` (4, L) f32.
 
     base (4, L) f32 [xf, xr, yf, yr]; planes (4, L) i32 [pos, pos_end,
     handle, path]; od (chunks, 2) i32 [window block, D]; eta (iter_max,)
-    f32, indexed by gl // cpi."""
+    f32, indexed by gl // cpi.  With `dmax` (one f32 word) also raise it
+    to the group's max |delta| over valid pairs."""
     od_h = od.cpu().numpy()
     for gl in range(g0, g0 + cgs):
         _chunk_2d(drift, base, planes, int(od_h[gl, 0]) * LANE, int(od_h[gl, 1]),
-                  eta[gl // cpi], gl)
+                  eta[gl // cpi], gl, dmax)
 
 
-def chunks_2d_levels_plain(drift, base, planes, od, eta, cpi: int, perm, lvl_off):
+def chunks_2d_levels_plain(drift, base, planes, od, eta, cpi: int, perm, lvl_off,
+                           dmax=None):
     """The chunks perm[lvl_off[0]:lvl_off[-1]] in that order, in place on
     `drift` (`ops/strata_levels.py`: one group's levels, each level's chunks
-    slot-disjoint); the same per-chunk body as `chunks_2d_plain`."""
+    slot-disjoint); the same per-chunk body as `chunks_2d_plain`, `dmax`
+    too."""
     od_h = od.cpu().numpy()
     off = lvl_off.cpu().numpy()
     for gl in perm[int(off[0]):int(off[-1])].cpu().tolist():
         _chunk_2d(drift, base, planes, int(od_h[gl, 0]) * LANE, int(od_h[gl, 1]),
-                  eta[gl // cpi], gl)
+                  eta[gl // cpi], gl, dmax)
 
 
-def _chunk_1d(drift, base, planes, o: int, D: int, lr) -> None:
+def _chunk_1d(drift, base, planes, o: int, D: int, lr, dmax=None) -> None:
     """One 1D chunk, window start slot `o` and jump `D`, in place on
     `drift`: no coins; a pair is valid only if also pos_a != pos_b, and its
     weight is 1/d; the A slot subtracts rr, then the B slot adds it."""
@@ -175,30 +191,33 @@ def _chunk_1d(drift, base, planes, o: int, D: int, lr) -> None:
     dx = torch.where(dx == 0.0, 1e-9, dx)
     mag = dx.abs()
     delta = mu * (mag - term) * 0.5
+    _track(dmax, delta, valid)
     rr = torch.where(valid, delta / mag * dx, 0.0)
     d0[A] -= rr
     d0[B] += rr
 
 
-def chunks_1d_plain(drift, base, planes, od, eta, cpi: int, g0: int, cgs: int):
+def chunks_1d_plain(drift, base, planes, od, eta, cpi: int, g0: int, cgs: int, dmax=None):
     """Chunks g0..g0+cgs-1 of the 1D scheme, in place on `drift` (1, L) f32.
 
-    planes (3, L) i32 [pos, handle, path]; od, eta as `chunks_2d_plain`."""
+    planes (3, L) i32 [pos, handle, path]; od, eta, dmax as
+    `chunks_2d_plain`."""
     od_h = od.cpu().numpy()
     for gl in range(g0, g0 + cgs):
         _chunk_1d(drift, base, planes, int(od_h[gl, 0]) * LANE, int(od_h[gl, 1]),
-                  eta[gl // cpi])
+                  eta[gl // cpi], dmax)
 
 
-def chunks_1d_levels_plain(drift, base, planes, od, eta, cpi: int, perm, lvl_off):
+def chunks_1d_levels_plain(drift, base, planes, od, eta, cpi: int, perm, lvl_off,
+                           dmax=None):
     """`chunks_2d_levels_plain` for the 1D scheme: the chunks
     perm[lvl_off[0]:lvl_off[-1]] in that order, the body of
-    `chunks_1d_plain`."""
+    `chunks_1d_plain`, `dmax` too."""
     od_h = od.cpu().numpy()
     off = lvl_off.cpu().numpy()
     for gl in perm[int(off[0]):int(off[-1])].cpu().tolist():
         _chunk_1d(drift, base, planes, int(od_h[gl, 0]) * LANE, int(od_h[gl, 1]),
-                  eta[gl // cpi])
+                  eta[gl // cpi], dmax)
 
 
 def merge_sum_plain(drift, mi: "MergeIndex", coords, upd):
@@ -383,6 +402,7 @@ class StrataState:
     upd: torch.Tensor      # f64 (2 or 1, E_cap) last merge's update
     perm: torch.Tensor     # i32 (chunks,) the chunks by (group, level, index)
     lvl_rows: list         # each group's i32 level offsets into perm
+    dmax: torch.Tensor     # f32 (groups,) each tracked group's Delta_max
     route: str = "resident"
     bsch: Optional[BlockSchedule] = None  # "xxl"
     order: Optional[np.ndarray] = None    # "xxl": relabel order
@@ -443,17 +463,20 @@ class StrataState:
             upd=torch.zeros((coords.shape[0], mi.ecap), dtype=torch.float64, device=device),
             perm=t(perm_h, torch.int32),
             lvl_rows=[off_t[gid, :n + 1] for gid, n in enumerate(strata_levels.depths(lvl_off))],
+            dmax=torch.zeros(p["groups"], dtype=torch.float32, device=device),
             route=route,
             bsch=BlockSchedule.build(g, one_d, device) if route == "xxl" else None,
             order=order,
         )
 
-    def run_group(self, gid: int) -> None:
-        """One merge group: the chunk phase by conflict levels, then the
-        route's consensus merge."""
+    def run_group(self, gid: int, track: bool = False) -> None:
+        """One merge group: the chunk phase by conflict levels (with
+        `track`, the tracking instance, into dmax[gid]), then the route's
+        consensus merge."""
         chunks = kernels.strata_chunks_1d_levels if self.one_d else kernels.strata_chunks_2d_levels
+        kw = dict(dmax=self.dmax[gid:gid + 1]) if track else {}
         chunks(self.drift, self.base, self.planes, self.od, self.eta, self.plan["cpi"],
-               self.perm, self.lvl_rows[gid])
+               self.perm, self.lvl_rows[gid], **kw)
         if self.route == "xxl":
             kernels.strata_merge_sum_blocked(self.drift, self.mi, self.bsch,
                                              self.coords, self.upd)
@@ -461,26 +484,56 @@ class StrataState:
             kernels.strata_merge_sum(self.drift, self.mi, self.coords, self.upd)
         kernels.strata_merge_bcast(self.drift, self.base, self.mi, self.upd)
 
-    def run(self) -> None:
-        for gid in range(self.plan["groups"]):
-            self.run_group(gid)
+    def merges_per_iteration(self) -> int:
+        """The merge groups of one iteration.  Every group lies within one
+        iteration (K = 1 iteration a merge, the plan the reference forces
+        for delta runs); raise if the plan says otherwise."""
+        p = self.plan
+        mpi = p["cpi"] // p["cgs"]
+        iters = int(self.eta.shape[0])
+        if mpi * p["cgs"] != p["cpi"] or p["groups"] != iters * mpi:
+            raise AssertionError(f"strata plan: groups {p['groups']} of {p['cgs']} chunks "
+                                 f"do not tile {iters} iterations of {p['cpi']}")
+        return mpi
+
+    def run(self, delta: float = 0.0) -> dict:
+        """The run's groups in order.  With delta > 0 (-j) the chunk phase
+        tracks each group's Delta_max, and the run stops after the first
+        iteration whose max over its groups is at most delta: one host
+        read an iteration.  Returns dict(iterations, delta_max), the
+        per-iteration maxima of a tracked run (else empty)."""
+        if delta <= 0:
+            for gid in range(self.plan["groups"]):
+                self.run_group(gid)
+            return dict(iterations=int(self.eta.shape[0]), delta_max=[])
+        mpi = self.merges_per_iteration()
+        delta_max = []
+        for it in range(int(self.eta.shape[0])):
+            for gid in range(it * mpi, (it + 1) * mpi):
+                self.run_group(gid, track=True)
+            delta_max.append(float(self.dmax[it * mpi:(it + 1) * mpi].max()))
+            if delta_max[-1] <= delta:
+                break
+        return dict(iterations=len(delta_max), delta_max=delta_max)
 
 
 def path_sgd_2d_strata(g, coords0, cfg, device, route: Optional[str] = None) -> torch.Tensor:
     """2D strata run from (2N, 2) `coords0`; f64 (2N, 2) on `device`.
-    `route` forces a route (default: `graph_route`)."""
+    `route` forces a route (default: `graph_route`); cfg.delta > 0 stops
+    early (`StrataState.run`).  The run's iterations and Delta_max values
+    go to ``ops.sgd.LAST_RUN``."""
     route = graph_route(g, cfg, one_d=False) if route is None else route
     st = StrataState.build(g, cfg, np.asarray(coords0, np.float64), False,
                            torch.device(device), route)
-    st.run()
+    LAST_RUN.update(route=route, **st.run(cfg.delta))
     return unrelabel(st.coords.T.contiguous(), st.order)
 
 
 def path_sgd_1d_strata(g, cfg, x0, device, route: Optional[str] = None) -> torch.Tensor:
     """1D strata run from `x0` (default: node offsets); f64 (N,) on
-    `device`.  `route` forces a route (default: `graph_route`)."""
+    `device`.  `route` and cfg.delta as `path_sgd_2d_strata`."""
     route = graph_route(g, cfg, one_d=True) if route is None else route
     x0v = g.node_offset.astype(np.float32) if x0 is None else np.asarray(x0, np.float32)
     st = StrataState.build(g, cfg, x0v, True, torch.device(device), route)
-    st.run()
+    LAST_RUN.update(route=route, **st.run(cfg.delta))
     return unrelabel(st.coords[0].clone(), st.order)

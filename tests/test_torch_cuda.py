@@ -15,7 +15,11 @@ the ascending-order loop merge_sum_ordered_plain exactly at every block
 size, and the blocked sum equals it too, at every node-block size.  The
 sharded run at two simulated devices on the card lies within 1e-9 of the
 same run on the CPU, and a one-rank NCCL group equals the one-device
-simulation exactly.
+simulation exactly.  The leveled kernels' tracking instances (delta early
+stop) give the untracked drift exactly and the plain versions' Delta_max
+exactly, and tracked runs on the card stop where the CPU's stop; a batched
+step on the card lies within 1e-6 of the scale of the same words' step on
+the CPU (index_add_ adds by atomics there).
 """
 
 import dataclasses
@@ -597,3 +601,129 @@ def test_bcast_rejects_misaligned_upd(cuda, wide_graph):
     kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)  # the aligned table runs
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["strata_merge_bcast"] == before + 1
+
+
+# ---------------------------------------------------------------------------
+# Delta early stop: the tracking instances of the leveled kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+@pytest.mark.parametrize("route", ["resident", "xxl"])
+def test_tracked_levels_equal_untracked_and_plain(cuda, long_graph, one_d, route):
+    """Group by group: the tracking instance's drift equals the untracked
+    kernel's bit for bit, its Delta_max word equals the plain version's
+    bit for bit, and it is counted apart."""
+    st = _state(long_graph, one_d, cuda, route)
+    p = st.plan
+    name = "strata_chunks_1d_levels" if one_d else "strata_chunks_2d_levels"
+    levels = getattr(kernels, name)
+    plain = strata_sgd.chunks_1d_levels_plain if one_d else strata_sgd.chunks_2d_levels_plain
+    before = dict(kernels.LAUNCHES)
+    for gid in range(p["groups"]):
+        args = (st.base, st.planes, st.od, st.eta, p["cpi"], st.perm, st.lvl_rows[gid])
+        d_u, d_t, d_p = st.drift.clone(), st.drift.clone(), st.drift.clone()
+        levels(d_u, *args)
+        levels(d_t, *args, dmax=st.dmax[gid:gid + 1])
+        w = torch.zeros(1, device=cuda)
+        plain(d_p, *args, dmax=w)
+        torch.cuda.synchronize()
+        assert torch.equal(d_t, d_u)
+        scale = float(st.base.abs().max()) + 1
+        assert float((d_t - d_p).abs().max()) / scale <= CHUNK_TOL
+        assert torch.equal(st.dmax[gid:gid + 1], w) and float(w) > 0
+        st.drift = d_t
+        kernels.strata_merge_sum(st.drift, st.mi, st.coords, st.upd)
+        kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)
+    assert kernels.LAUNCHES[name] - before[name] == p["groups"]
+    assert kernels.LAUNCHES[kernels.TRACKED[name]] - before[kernels.TRACKED[name]] == p["groups"]
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+def test_delta_runs_on_card_equal_cpu(cuda, long_graph, one_d):
+    """A 1e-30 delta equals the untracked run bit for bit on the card; an
+    interior delta stops at the iteration the CPU stops at, with the same
+    Delta_max values and coordinates within CHUNK_TOL."""
+    import dataclasses
+
+    kw = dict(iter_max=6, min_term_updates=16 * 1024)
+    if one_d:
+        cfg = sgd.derive_config_1d(long_graph, **kw)
+        run = lambda c, dev: sgd.path_sgd_1d(long_graph, c, device=dev).cpu().numpy()
+    else:
+        cfg = sgd.derive_config_2d(long_graph, **kw)
+        c0 = init_layout(long_graph)
+        run = lambda c, dev: sgd.path_sgd_2d(long_graph, c0, c, device=dev).cpu().numpy()
+    name = "strata_chunks_1d_levels" if one_d else "strata_chunks_2d_levels"
+    before = dict(kernels.LAUNCHES)
+    plain = run(cfg, cuda)
+    assert kernels.LAUNCHES[kernels.TRACKED[name]] == before[kernels.TRACKED[name]]
+    tiny = run(dataclasses.replace(cfg, delta=1e-30), cuda)
+    dm = list(sgd.LAST_RUN["delta_max"])
+    assert sgd.LAST_RUN["route"] == "resident" and len(dm) == cfg.iter_max
+    assert np.array_equal(tiny, plain)
+    k = next(i for i in range(1, cfg.iter_max - 1)
+             if all(dm[i] <= (1 - 1e-3) * v for v in dm[:i]))
+    stop = dataclasses.replace(cfg, delta=dm[k] * (1 + 2e-4))
+    on_card = run(stop, cuda)
+    assert sgd.LAST_RUN["iterations"] == k + 1 and sgd.LAST_RUN["delta_max"] == dm[:k + 1]
+    on_cpu = run(stop, "cpu")
+    assert sgd.LAST_RUN["delta_max"] == dm[:k + 1]
+    assert np.abs(on_card - on_cpu).max() / (np.abs(on_cpu).max() + 1) <= CHUNK_TOL
+
+
+def test_tracked_wrapper_rejects_bad_dmax(cuda, long_graph):
+    st = _state(long_graph, False, cuda)
+    args = (st.drift.clone(), st.base, st.planes, st.od, st.eta, st.plan["cpi"], st.perm,
+            st.lvl_rows[0])
+    for bad in (st.dmax, st.dmax[:1].double(), torch.zeros(1)):
+        with pytest.raises(ValueError):
+            kernels.strata_chunks_2d_levels(*args, dmax=bad)
+
+
+# ---------------------------------------------------------------------------
+# The batched path on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+def test_batched_step_on_card_matches_cpu(cuda, graph, one_d):
+    """One batch from the same words on the card and on the CPU: the same
+    pairs, and updates within 1e-6 of the scale (index_add_ adds by
+    atomics on the card)."""
+    from odgi_tpu_torch.ops import batched_sgd as bs
+
+    cfg = sgd.derive_config_1d(graph) if one_d else sgd.derive_config_2d(graph)
+    words = bs.draw_words(bs.make_generator(cfg, "cpu"), cfg.batch_size, "cpu")
+    x0 = (graph.node_offset.astype(np.float32) if one_d
+          else init_layout(graph).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda):
+        data = bs.SgdData.build(graph, cfg.theta, cfg.space, cfg.space_max,
+                                cfg.space_quantization_step, device=dev)
+        pairs, step_b = bs.sample_pairs(words.to(dev), 17, data, cfg, False)
+        update = bs.update_1d if one_d else bs.update_2d
+        x, m = update(torch.as_tensor(x0, device=dev), pairs, torch.tensor(np.float32(40.0),
+                                                                           device=dev))
+        out[str(dev)] = (step_b.cpu(), x.cpu().numpy(), float(m))
+    (s_c, x_c, m_c), (s_k, x_k, m_k) = out["cpu"], out[str(cuda)]
+    assert torch.equal(s_c, s_k)
+    assert np.abs(x_k - x_c).max() / (np.abs(x_c).max() + 1) <= 1e-6
+    assert m_k == m_c
+
+
+def test_batched_pinned_run_on_card(cuda, graph):
+    """A pinned 1D run on the card: the pinned positions stay f32(x0) bit
+    for bit, the others move, and the order improves on the start."""
+    from odgi_tpu_torch.algorithms import path_sgd_sort
+    from odgi_tpu_torch.algorithms.stats import sum_of_path_node_distances
+
+    g = graph.apply_ordering(np.random.default_rng(5).permutation(graph.num_nodes))
+    pin = path_sgd_sort.target_pin_mask(g, [0])
+    order, X = path_sgd_sort.path_sgd_order(g, return_x=True, target_paths=[0],
+                                            device="cuda")
+    assert sgd.LAST_RUN["route"] == "batched"
+    x0 = g.node_offset.astype(np.float32).astype(np.float64)
+    assert np.array_equal(X[pin], x0[pin]) and not np.array_equal(X[~pin], x0[~pin])
+    nt = lambda h: sum_of_path_node_distances(h, device="cpu").all_nt_space
+    assert nt(g.apply_ordering(order)) < nt(g)

@@ -13,6 +13,7 @@ coordinate scale):
 
 import numpy as np
 import pytest
+import torch
 
 from odgi_tpu.algorithms.layout import init_layout as j_init_layout
 from odgi_tpu.core.graph import GraphBuilder
@@ -184,21 +185,40 @@ def test_merge_index_block_eps_follow_list_length(graphs):
                 or 2 * mi.block_eps * mean > strata_sgd.SUM_TILE)
 
 
-def test_out_of_slice_paths_raise(graphs):
-    _, gt = graphs
-    c0 = j_init_layout(gt, "d")
-    cfg = sgd.derive_config_2d(gt, iter_max=1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sgd.path_sgd_2d(gt, c0, sgd.derive_config_2d(gt, delta=0.1), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sgd.path_sgd_2d(gt, c0, cfg, pin_nodes=np.zeros(gt.num_nodes, bool), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sgd.path_sgd_1d(gt, sgd.derive_config_1d(gt), snapshot_cb=print, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        sgd.path_sgd_1d(gt, sgd.derive_config_1d(gt), use_paths=[0], device="cpu")
-    small = graph_from_arrays(dict(graph_to_arrays(gt)) | dict(
+def _small_graph(gt):
+    """The first 100 steps of path 0 alone: under 1,024 steps."""
+    return graph_from_arrays(dict(graph_to_arrays(gt)) | dict(
         path_names=("p0",), path_circular=np.zeros(1, bool),
         path_offset=np.array([0, 100]), step_handle=gt.step_handle[:100],
         step_pos=gt.step_pos[:100]))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sgd.path_sgd_1d(small, device="cpu")
+
+
+@pytest.mark.parametrize("case,route", [
+    ("delta", "resident"), ("pin", "batched"), ("snapshot", "batched"),
+    ("use_paths", "resident"), ("small", "batched"),
+])
+def test_out_of_slice_paths_raise(graphs, case, route):
+    """The options that raised before this slice (delta, pinning,
+    snapshots, a path subset, graphs under 1,024 steps) now run on the CPU
+    and take the reference's route."""
+    _, gt = graphs
+    c0 = j_init_layout(gt, "d")
+    cfg2 = sgd.derive_config_2d(gt, iter_max=2, min_term_updates=3 * 1024)
+    cfg1 = sgd.derive_config_1d(gt, iter_max=2, min_term_updates=3 * 1024)
+    if case == "delta":
+        out = sgd.path_sgd_2d(gt, c0, sgd.derive_config_2d(gt, iter_max=2, delta=0.1),
+                              device="cpu")
+    elif case == "pin":
+        out = sgd.path_sgd_2d(gt, c0, cfg2, pin_nodes=np.zeros(gt.num_nodes, bool),
+                              device="cpu")
+    elif case == "snapshot":
+        seen = []
+        out = sgd.path_sgd_1d(gt, cfg1, snapshot_cb=lambda it, x: seen.append(it),
+                              device="cpu")
+        assert seen == [0, 1]
+    elif case == "use_paths":
+        out = sgd.path_sgd_1d(gt, cfg1, use_paths=[0], device="cpu")
+    else:
+        out = sgd.path_sgd_1d(_small_graph(gt), device="cpu")
+    assert sgd.LAST_RUN["route"] == route
+    assert bool(torch.isfinite(out).all())
