@@ -35,6 +35,22 @@ Phases, each printing one line or more:
      (-f; resident, bit-equal to the same run on the kept graph); Y and
      the layout of a 1,000-step graph (batched); and one batched 2D batch
      timed and its CUDA kernels counted with torch.profiler;
+ 4c. the command line (odgi_tpu_torch.cli.main, device None) on phase 4's
+     GFA: the native parser against the Python one (equal graphs, both
+     timed) and a timed .otg round trip; then build (one .og, its write
+     timed; the native parser) and build .otg -> validate (its problems
+     counted against numpy) -> sort -p Ygs --metrics --profile -> layout
+     --profile -> stats -S -s and stats -s -c through .otg, each
+     command's wall and its graph reads and writes timed:
+     the sorted graph bit-equal to phase 4's sort_pipeline("Ygs"), the
+     .lay bytes equal to phase 4's, the printed nt-distance and stress
+     equal to phase 4's to the printed digit, the --metrics line, and
+     each trace's device-busy share (the union of its CUDA kernels over
+     the profiled window; a trace without a kernel fails, and the share
+     is null unless the trace holds each strata kernel as often as the
+     wrappers counted it for that command) beside the event-sum idle
+     shares; then layout
+     --metrics on the 1,000-step graph (batched: one record an iteration);
   5. the stream kernels and the blocked sum against their plain versions
      and against the resident kernels, the broadcast against its plain
      version (bit for bit, beside the times of the designs it replaced),
@@ -74,9 +90,14 @@ object.  Any failed phase exits non-zero and prints no ok line.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import datetime
+import glob
+import io
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -87,7 +108,12 @@ import numpy as np
 import torch
 
 import odgi_tpu_torch as ot
+from odgi_tpu_torch import native
 from odgi_tpu_torch.algorithms import groom, layout, path_sgd_sort, topological
+from odgi_tpu_torch.cli import main as cli_main
+from odgi_tpu_torch.convert import FIELDS
+from odgi_tpu_torch.io import gfa as gfa_io
+from odgi_tpu_torch.io import og as og_io
 from odgi_tpu_torch.ops import (batched_sgd, kernels, sgd, strata_levels, strata_plan,
                                 strata_route, strata_sgd, strata_xl, strata_xxl)
 from odgi_tpu_torch.ops.sgd import derive_config_1d, derive_config_2d
@@ -1106,6 +1132,13 @@ def same_graph(a, b) -> bool:
                 and np.array_equal(a.step_handle, b.step_handle))
 
 
+def same_fields(a, b) -> bool:
+    """Every field of two graphs equal, dtypes included."""
+    return all(a.path_names == b.path_names if k == "path_names" else
+               getattr(a, k).dtype == getattr(b, k).dtype
+               and np.array_equal(getattr(a, k), getattr(b, k)) for k in FIELDS)
+
+
 def batch_profile(g, dev) -> dict:
     """One 2D batch of the batched path on `g` at its default batch:
     device ms behind a spin kernel, and the CUDA kernels it launches as
@@ -1368,6 +1401,269 @@ def phase_options(smoke: dict, sm: dict, tmp: str, dev, rec: Record) -> None:
         fail(f"opt-small: quality did not improve {out}")
 
     say("batched_batch", graph="smoke-sorted", **batch_profile(g2, dev))
+
+
+# ---------------------------------------------------------------------------
+# Phase 4c: the command line on the smoke graph
+# ---------------------------------------------------------------------------
+
+
+class CliIO:
+    """Times the graph reads and writes and the PG-SGD runs the command
+    line makes (wrapping the names its module calls) and keeps each graph
+    by path: the graphs a save was given and those a load returned."""
+
+    NAMES = ("parse_gfa", "save_og", "load_og", "save_graph", "load_graph",
+             "sort_pipeline", "layout_graph")
+
+    def __init__(self):
+        self.seconds = {n: [] for n in self.NAMES}
+        self.saved, self.loaded = {}, {}
+        self.orig = {n: getattr(cli_main, n) for n in self.NAMES}
+
+    def __enter__(self):
+        def wrap(name, fn):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                g = fn(*a, **kw)
+                self.seconds[name].append(sync_wall(t0))
+                if name.startswith("save_"):
+                    self.saved[a[1]] = a[0]
+                elif name.startswith("load_"):
+                    self.loaded[a[0]] = g
+                return g
+            return call
+
+        for n, fn in self.orig.items():
+            setattr(cli_main, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(cli_main, n, fn)
+
+
+def cli(argv: list, walls: dict, rc_want: int = 0) -> tuple:
+    """One command through odgi_tpu_torch.cli.main on the card (device
+    None, as `python -m odgi_tpu_torch.cli` runs it); its wall goes to
+    `walls`.  Returns its stdout and stderr; fails unless it exits with
+    `rc_want`."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main.main(argv)
+    walls.setdefault(argv[0], []).append(sync_wall(t0))
+    if rc != rc_want:
+        fail(f"cli {' '.join(argv)}: exit {rc}: {err.getvalue()[-2000:]}")
+    return out.getvalue(), err.getvalue()
+
+
+def missing_edges(g) -> int:
+    """Consecutive step pairs that no edge joins, in either direction of
+    the bidirected edge: what `validate` must report, counted with numpy."""
+    n2 = 2 * g.num_nodes
+    is_last = np.zeros(g.num_steps, dtype=bool)
+    is_last[g.path_offset[1:] - 1] = True
+    a = g.step_handle[:-1][~is_last[:-1]]
+    b = g.step_handle[1:][~is_last[:-1]]
+    edges = np.concatenate([g.edge_from * n2 + g.edge_to,
+                            (g.edge_to ^ 1) * n2 + (g.edge_from ^ 1)])
+    return int((~np.isin(a * n2 + b, edges)).sum())
+
+
+def trace_busy(trace_dir: str, launches: dict) -> dict:
+    """From the torch.profiler trace in `trace_dir`: the union of its CUDA
+    kernel intervals over the profiled window (the span of all its
+    events).  The spin kernels KernelTimes queues are left out of the
+    union and counted apart.  The share stands only where the trace holds
+    every strata kernel the wrappers counted for that command
+    (`launches`, a tracked instance under its kernel's name): else CUPTI
+    dropped records and busy_share is None."""
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"{trace_dir}: {len(files)} traces")
+    with open(files[0]) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    spin = sum("spin" in e.get("name", "").lower() for e in kern)
+    if len(kern) == spin:
+        fail(f"{trace_dir}: the --profile trace holds no CUDA kernel")
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e["dur"] for e in events)
+    busy, end = 0.0, lo
+    for ts, dur in sorted((e["ts"], e["dur"]) for e in kern
+                          if "spin" not in e.get("name", "").lower()):
+        busy += max(0.0, ts + dur - max(ts, end))
+        end = max(end, ts + dur)
+    names = collections.Counter(e.get("name", "")[:60] for e in kern)
+    traced = {n: sum(bool(re.search(f"::{n}_kernel[<(]", e.get("name", ""))) for e in kern)
+              for n in kernels.SIGNATURES}
+    counted = {n: launches[n] + launches.get(kernels.TRACKED.get(n), 0)
+               for n in kernels.SIGNATURES}
+    complete = traced == counted
+    return dict(trace_bytes=os.path.getsize(files[0]), events=len(events),
+                kernels=len(kern) - spin, spin_kernels=spin, kernels_by_name=dict(names),
+                strata_traced={n: c for n, c in traced.items() if c or counted[n]},
+                strata_launched={n: c for n, c in counted.items() if c or traced[n]},
+                trace_complete=complete,
+                memcpy=sum(e.get("cat") == "gpu_memcpy" for e in events),
+                window_s=(hi - lo) / 1e6, kernel_union_s=busy / 1e6,
+                busy_share=busy / (hi - lo) if complete else None)
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def stats_all_paths(text: str, column: int) -> str:
+    """Column `column` of the all_paths row that `stats` printed."""
+    rows = [ln.split("\t") for ln in text.splitlines() if ln.startswith("all_paths\t")]
+    if len(rows) != 1:
+        fail(f"stats printed {len(rows)} all_paths rows:\n{text}")
+    return rows[0][column]
+
+
+def phase_cli(gfa_path: str, tmp: str, smoke: dict, sm: dict, dev, rec: Record) -> None:
+    """build -> validate -> sort -p Ygs (--metrics, --profile) -> layout
+    (--profile) -> stats -S -s and stats -s -c through the command line,
+    on phase 4's GFA: the native parser, and the order, coordinates and
+    printed stats of phase 4; then layout --metrics on the small graph."""
+    g4, coords4, p1, p2 = sm["g2"], sm["coords"], sm["p1"], sm["p2"]
+    out = {}
+    # the two parsers on the same file, and the .otg container
+    t0 = time.perf_counter()
+    g_nat = ot.parse_gfa(gfa_path, device=dev)
+    out["parse_native_s"] = time.perf_counter() - t0
+    out["parser"] = gfa_io.LAST_PARSER["name"]
+    if out["parser"] != "native":
+        fail(f"cli: the native GFA parser did not run: {native.build_error()}")
+    with open(gfa_path, "rb") as f:
+        data = f.read()
+    t0 = time.perf_counter()
+    g_py = ot.parse_gfa(data, device=dev)
+    out["parse_python_s"] = time.perf_counter() - t0
+    out["native_equals_python"] = same_fields(g_nat, g_py)
+    otg = os.path.join(tmp, "smoke.otg")
+    t0 = time.perf_counter()
+    og_io.save_graph(g_nat, otg)
+    out["otg_write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = og_io.load_graph(otg)
+    out["otg_read_s"] = time.perf_counter() - t0
+    out["otg_bytes"] = os.path.getsize(otg)
+    out["otg_equal"] = same_fields(back, g_nat)
+    del g_py, back
+    if not (out["native_equals_python"] and out["otg_equal"]):
+        fail(f"cli: native parse == Python {out['native_equals_python']}, "
+             f".otg round trip {out['otg_equal']}")
+
+    # One .og of the smoke graph, its write timed: a read takes minutes on
+    # the card's host (a Python loop a path position; PERF.md §5), so the
+    # chain runs through .otg.
+    f = {k: os.path.join(tmp, f"cli.{k}") for k in ("og", "otg", "lay", "jsonl")}
+    f.update(sorted=os.path.join(tmp, "cli-sorted.otg"),
+             trace_sort=os.path.join(tmp, "trace-sort"),
+             trace_layout=os.path.join(tmp, "trace-layout"))
+    walls, printed = {}, {}
+    with CliIO() as gio:
+        def run():
+            gfa_io.LAST_PARSER["name"] = None
+            cli(["build", "-g", gfa_path, "-o", f["og"]], walls)
+            parser = gfa_io.LAST_PARSER["name"]
+            cli(["build", "-g", gfa_path, "-o", f["otg"]], walls)
+            # the generator stores each edge as (min, max) of its handles, so
+            # some path steps lack their edge: validate reports each one
+            missing = missing_edges(sm["g"])
+            _, problems = cli(["validate", "-i", f["otg"]], walls, 1 if missing else 0)
+            cmd_launches = {}
+            for k, argv in (("sort", ["sort", "-i", f["otg"], "-o", f["sorted"], "-p", "Ygs",
+                                      "--metrics", f["jsonl"], "--profile", f["trace_sort"]]),
+                            ("layout", ["layout", "-i", f["sorted"], "-o", f["lay"],
+                                        "--profile", f["trace_layout"]])):
+                before = dict(kernels.LAUNCHES)
+                cli(argv, walls)
+                cmd_launches[k] = {n: c - before[n] for n, c in kernels.LAUNCHES.items()}
+            printed["S_s"] = cli(["stats", "-i", f["sorted"], "-S", "-s"], walls)[0]
+            printed["s_c"] = cli(["stats", "-i", f["sorted"], "-s", "-c", f["lay"]], walls)[0]
+            return dict(build_parser=parser, validate_problems=len(problems.splitlines()),
+                        missing_edges=missing, cmd_launches=cmd_launches)
+
+        out.update(counted("cli", rec, run))
+    routes = {"1d": strata_route.graph_route(sm["g"], derive_config_1d(sm["g"]), True),
+              "2d": strata_route.graph_route(g4, derive_config_2d(g4), False)}
+    check_routes(out, "cli", "resident", routes, {"1d": p1["groups"], "2d": p2["groups"]})
+    out["walls_s"] = walls
+    out["timed_s"] = gio.seconds
+    out["file_bytes"] = {k: os.path.getsize(f[k]) for k in ("og", "otg", "sorted", "lay")}
+    sorted_g = gio.saved.get(f["sorted"])
+    out["sorted_equal_phase4"] = sorted_g is not None and same_graph(sorted_g, g4)
+    out["sorted_reads_back"] = same_graph(gio.loaded[f["sorted"]], g4)
+    with open(f["lay"], "rb") as a, open(os.path.join(tmp, "smoke.lay"), "rb") as b:
+        out["lay_bytes_equal_phase4"] = a.read() == b.read()
+    lay = ot.load_layout(f["lay"])
+    out["lay_max_abs_err_phase4"] = float(np.abs(lay - coords4).max())
+    out["nt_printed"] = stats_all_paths(printed["S_s"], 2)
+    out["stress_printed"] = stats_all_paths(printed["s_c"], 2)
+    want = {"nt": f"{smoke['nt_after']:.6g}", "stress": f"{smoke['stress_after']:.6g}"}
+    out["metrics"] = read_jsonl(f["jsonl"])
+    cmd_launches = out.pop("cmd_launches")
+    out["trace"] = {k: trace_busy(f[f"trace_{k}"], cmd_launches[k]) for k in ("sort", "layout")}
+    dev_s = smoke["sgd_device_s"]
+    sgd_walls = dict(sort=gio.seconds["sort_pipeline"][0], layout=gio.seconds["layout_graph"][0])
+    out["idle_share_event_sums"] = dict(
+        phase4=dict(sort=1 - dev_s["1d"] / smoke["sort_Ygs_s"],
+                    layout=1 - dev_s["2d"] / smoke["layout_s"]),
+        cli_profiled=dict(sort=1 - out["sgd_device_s"]["1d"] / sgd_walls["sort"],
+                          layout=1 - out["sgd_device_s"]["2d"] / sgd_walls["layout"]))
+    out["busy_share_trace"] = {k: v["busy_share"] for k, v in out["trace"].items()}
+    out["phase4_walls_s"] = dict(sort_Ygs=smoke["sort_Ygs_s"], layout=smoke["layout_s"],
+                                 parse=smoke["parse_s"])
+    say("main_path", path="cli", **out, printed=printed, phase4_printed=want)
+    if out["build_parser"] != "native":
+        fail(f"cli build: parser {out['build_parser']}, expected native")
+    if out["validate_problems"] != out["missing_edges"]:
+        fail(f"cli validate: {out['validate_problems']} problems, "
+             f"{out['missing_edges']} steps without their edge")
+    if not (out["sorted_equal_phase4"] and out["sorted_reads_back"]):
+        fail("cli sort: the sorted graph differs from phase 4's sort_pipeline('Ygs')")
+    if not out["lay_bytes_equal_phase4"]:
+        fail(f"cli layout: .lay differs from phase 4's (max {out['lay_max_abs_err_phase4']})")
+    if (out["nt_printed"], out["stress_printed"]) != (want["nt"], want["stress"]):
+        fail(f"cli stats printed nt {out['nt_printed']} stress {out['stress_printed']}, "
+             f"phase 4 {want}")
+    expect = [dict(kind="sort1d_summary", pipeline="Ygs", nodes=g4.num_nodes,
+                   steps=g4.num_steps)]
+    if [{k: v for k, v in r.items() if k != "wall_s"} for r in out["metrics"]] != expect:
+        fail(f"cli sort --metrics: {out['metrics']}, expected {expect} (and wall_s)")
+    add_bounds(rec, "cli", sm["g"], p1, g4, p2, "resident")
+    borrow_times(rec, "smoke", "cli")
+
+    # layout --metrics on the small graph: a per-iteration callback, the
+    # batched path (no strata kernel)
+    gs_path, ms_path = os.path.join(tmp, "small.gfa"), os.path.join(tmp, "small.jsonl")
+    small = shuffled_graph(*SMALL)
+    ot.write_gfa(small, gs_path)
+    walls = {}
+
+    def run_small():
+        cli(["layout", "-i", gs_path, "-o", os.path.join(tmp, "small.lay"), "--metrics",
+             ms_path], walls)
+        return dict(route=sgd.LAST_RUN["route"])
+
+    out = counted("cli-small", rec, run_small, levels=())
+    out["walls_s"] = walls
+    out["metrics"] = read_jsonl(ms_path)
+    say("main_path", path="cli-small", **out)
+    iters = derive_config_2d(small).iter_max
+    kinds = [(r["kind"], r.get("iter"), "delta_max" in r) for r in out["metrics"]]
+    expect = ([("layout2d", 0, False)] + [("layout2d", i, True) for i in range(1, iters)]
+              + [("layout2d_summary", None, False)])
+    if out["route"] != "batched" or any(out["launches"].values()):
+        fail(f"cli-small: route {out['route']}, launches {out['launches']}")
+    if kinds != expect or out["metrics"][-1].get("iter_max") != iters:
+        fail(f"cli-small layout --metrics: {out['metrics']}")
 
 
 # ---------------------------------------------------------------------------
@@ -1812,6 +2108,7 @@ def main() -> int:
         phase_kernels(ot.parse_gfa(gfa, device=dev), dev, rec)
         smoke, g_smoke, smoke_state = phase_smoke(gfa, tmp, dev, rec)
         phase_options(smoke, smoke_state, tmp, dev, rec)
+        phase_cli(gfa, tmp, smoke, smoke_state, dev, rec)
         del smoke_state
 
         t0 = time.perf_counter()

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import List
+
 import numpy as np
 from scipy.sparse import coo_matrix
 from scipy.sparse.csgraph import connected_components
@@ -27,3 +29,15 @@ def weak_component_ids(g: GraphTensors) -> np.ndarray:
     remap = np.empty(ncomp, dtype=np.int32)
     remap[order] = np.arange(ncomp, dtype=np.int32)
     return remap[labels]
+
+
+def weak_components(g: GraphTensors) -> List[np.ndarray]:
+    """List of node-rank arrays, one per weak component (ordered)."""
+    labels = weak_component_ids(g)
+    ncomp = int(labels.max()) + 1 if len(labels) else 0
+    return [np.nonzero(labels == c)[0] for c in range(ncomp)]
+
+
+def num_self_loops(g: GraphTensors) -> int:
+    """Number of edges whose two ends are the same node."""
+    return int(np.sum(handle_rank(g.edge_from) == handle_rank(g.edge_to)))

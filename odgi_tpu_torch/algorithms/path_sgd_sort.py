@@ -14,6 +14,7 @@ import torch
 from ..core.graph import GraphTensors, handle_rank
 from ..device import resolve_device
 from ..ops.sgd import SgdConfig, derive_config_1d, not_ported, path_sgd_1d
+from ..utils.progress import ProgressMeter
 from .components import weak_component_ids
 from .groom import apply_groom
 from .topological import topological_order
@@ -62,11 +63,13 @@ def path_sgd_order(g: GraphTensors, cfg: Optional[SgdConfig] = None,
 def sort_pipeline(g: GraphTensors, pipeline: str = "Ygs", sgd_overrides: Optional[dict] = None,
                   target_paths: Optional[Sequence[int]] = None,
                   use_paths: Optional[Sequence[int]] = None,
-                  snapshot_prefix: Optional[str] = None, device=None) -> GraphTensors:
+                  snapshot_prefix: Optional[str] = None, progress: bool = False,
+                  device=None) -> GraphTensors:
     """Apply a chain of sort passes: Y (1D PG-SGD on `device`, with the
     config overrides `sgd_overrides`, the pinned `target_paths` and the
-    path subset `use_paths`), g (groom), s (topological order from the
-    heads)."""
+    path subset `use_paths`; `progress` shows a meter of its iterations on
+    stderr, whose per-iteration callback takes the batched path, as in
+    ``odgi_tpu``), g (groom), s (topological order from the heads)."""
     dev = resolve_device(device)
     for c in pipeline:
         if c not in SUPPORTED_CODES:
@@ -75,9 +78,20 @@ def sort_pipeline(g: GraphTensors, pipeline: str = "Ygs", sgd_overrides: Optiona
         raise not_ported("per-iteration .og snapshots of the sort (-u)", 13)
     for c in pipeline:
         if c == "Y":
+            snapshot_cb = None
+            if progress:
+                meter = ProgressMeter(derive_config_1d(g, **(sgd_overrides or {})).iter_max,
+                                      "[odgi_tpu_torch::sort] 1D PG-SGD iterations")
+
+                def snapshot_cb(it, X, _m=meter):
+                    _m.increment()
+                    if it + 1 >= _m.total:
+                        _m.finish()
+
             g = g.apply_ordering(
                 path_sgd_order(g, use_paths=use_paths, overrides=sgd_overrides,
-                               target_paths=target_paths, device=dev),
+                               target_paths=target_paths, snapshot_cb=snapshot_cb,
+                               device=dev),
                 compact_ids=True,
             )
         elif c == "g":

@@ -135,6 +135,15 @@ class GraphTensors:
         )
 
     @property
+    def step_rank(self) -> np.ndarray:
+        """i64[S]: rank of every step within its path."""
+        return self._cached(
+            "step_rank",
+            lambda: np.arange(self.num_steps, dtype=np.int64)
+            - self.path_offset[self.step_path],
+        )
+
+    @property
     def path_step_count(self) -> np.ndarray:
         """i64[P]: number of steps per path."""
         return self._cached("path_step_count", lambda: np.diff(self.path_offset))
@@ -162,6 +171,26 @@ class GraphTensors:
         return self._cached("node_offset", lambda: self.seq_offset[:-1].copy())
 
     @property
+    def id_to_rank(self) -> Dict[int, int]:
+        """External node id -> rank lookup (host only)."""
+        return self._cached(
+            "id_to_rank",
+            lambda: {int(i): r for r, i in enumerate(self.node_id)},
+        )
+
+    @property
+    def step_node_pos(self) -> np.ndarray:
+        """i64[S]: signed per-step positions: the 1-based start of the step
+        in its path, negated for reverse steps."""
+
+        def compute():
+            pos = self.step_pos + 1
+            rev = handle_is_reverse(self.step_handle)
+            return np.where(rev, -pos, pos)
+
+        return self._cached("step_node_pos", compute)
+
+    @property
     def adjacency(self) -> "SideAdjacency":
         """CSR adjacency over packed handles; built lazily on host."""
         return self._cached("adjacency", lambda: SideAdjacency.build(self))
@@ -174,6 +203,38 @@ class GraphTensors:
 
     def node_seq_str(self, rank: int, is_reverse: bool = False) -> str:
         return self.node_seq(rank, is_reverse).decode("ascii")
+
+    # ---- integrity --------------------------------------------------------
+
+    def is_optimized(self) -> bool:
+        """True iff external ids are exactly 1..N in rank order."""
+        return bool(
+            np.array_equal(self.node_id, np.arange(1, self.num_nodes + 1))
+        )
+
+    def validate(self) -> List[str]:
+        """Path/edge consistency (`odgi validate`): every consecutive step
+        pair of every path must be joined by an edge.  Returns the problems
+        as readable lines (empty: valid)."""
+        problems: List[str] = []
+        edge_set = set(zip(self.edge_from.tolist(), self.edge_to.tolist()))
+
+        def has_edge(a, b):
+            # edges are bidirected: a->b equals flip(b)->flip(a)
+            return (a, b) in edge_set or (int(handle_flip(b)), int(handle_flip(a))) in edge_set
+
+        for p in range(self.num_paths):
+            lo, hi = int(self.path_offset[p]), int(self.path_offset[p + 1])
+            hs = self.step_handle[lo:hi]
+            for k in range(len(hs) - 1):
+                a, b = int(hs[k]), int(hs[k + 1])
+                if not has_edge(a, b):
+                    problems.append(
+                        f"path {self.path_names[p]!r} step {k}->{k+1}: "
+                        f"missing edge between node ids "
+                        f"{int(self.node_id[a >> 1])} and {int(self.node_id[b >> 1])}"
+                    )
+        return problems
 
     # ---- functional transforms -------------------------------------------
 
@@ -216,6 +277,10 @@ class GraphTensors:
             step_handle=remap(self.step_handle),
             step_pos=self.step_pos,
         )
+
+    def optimize(self) -> "GraphTensors":
+        """Compact ids to 1..N in the current order."""
+        return self.apply_ordering(np.arange(self.num_nodes), compact_ids=True)
 
     def apply_orientations(self, flip_mask: np.ndarray) -> "GraphTensors":
         """Reverse-complement the nodes in `flip_mask` and rewrite every
@@ -335,6 +400,9 @@ class GraphBuilder:
         self._seqs.append(seq)
         return rank
 
+    def has_node(self, node_id: int) -> bool:
+        return node_id in self._id_to_rank
+
     def add_edge(self, id_a: int, rev_a: bool, id_b: int, rev_b: bool):
         a = (self._id_to_rank[id_a] << 1) | int(rev_a)
         b = (self._id_to_rank[id_b] << 1) | int(rev_b)
@@ -358,6 +426,9 @@ class GraphBuilder:
     def append_step(self, path_idx: int, node_id: int, is_reverse: bool):
         h = (self._id_to_rank[node_id] << 1) | int(is_reverse)
         self._path_steps[path_idx].append(h)
+
+    def append_step_handle(self, path_idx: int, handle: int):
+        self._path_steps[path_idx].append(handle)
 
     def build(self) -> GraphTensors:
         n = len(self._ids)

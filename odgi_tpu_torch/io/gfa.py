@@ -1,8 +1,12 @@
 """GFA v1 reader/writer for the port's GraphTensors.
 
-The pure-Python path of ``odgi_tpu/io/gfa.py``: one pass over the lines into
-the host-side builder, then one vectorized freeze.  Non-integer segment
-names get dense ids above the largest integer name; integer names are kept.
+The counterpart of ``odgi_tpu/io/gfa.py``.  A file path goes to the native
+C++ parser (``native/``, built at first use) first, as in ``odgi_tpu``;
+bytes, file objects, and paths when the parser cannot be built, take the
+pure-Python path: one pass over the lines into the host-side builder, then
+one vectorized freeze.  Both give the same graph: non-integer segment names
+get dense ids above the largest integer name; integer names are kept.
+``LAST_PARSER["name"]`` says which parser the last call used.
 """
 
 from __future__ import annotations
@@ -11,6 +15,9 @@ from typing import Dict, List, TextIO, Tuple, Union
 
 from ..core.graph import GraphBuilder, GraphTensors
 from ..device import resolve_device
+from ..native import parse_gfa_native
+
+LAST_PARSER: dict = {"name": None}
 
 
 def parse_gfa(source: Union[str, TextIO, bytes], device=None) -> GraphTensors:
@@ -24,6 +31,10 @@ def parse_gfa(source: Union[str, TextIO, bytes], device=None) -> GraphTensors:
     if isinstance(source, bytes):
         data = source
     elif isinstance(source, str):
+        g = parse_gfa_native(source)
+        if g is not None:
+            LAST_PARSER["name"] = "native"
+            return g
         with open(source, "rb") as f:
             data = f.read()
     else:
@@ -102,6 +113,7 @@ def parse_gfa(source: Union[str, TextIO, bytes], device=None) -> GraphTensors:
         pi = b.add_path(pname.decode("utf-8"))
         for sname, srev in steps:
             b.append_step(pi, name_map[sname], srev)
+    LAST_PARSER["name"] = "python"
     return b.build()
 
 

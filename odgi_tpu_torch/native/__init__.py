@@ -1,0 +1,145 @@
+"""The native GFA parser (``src/gfa_parse.cpp``), built at first use.
+
+A copy of ``odgi_tpu/native``'s C++ parser: one mmap pass over the file
+into flat arrays.  ``g++ -O3 -std=c++17`` builds it into
+``odgi_tpu_torch/_build/`` (keyed by a hash of the source and the flags,
+like the CUDA kernels) the first time a GFA path is parsed, and ``ctypes``
+binds its plain C interface.  Importing this module builds nothing.
+Without a working ``g++`` the parser is unavailable (``get_lib()`` returns
+None and ``build_error()`` says why) and ``io/gfa.py`` parses in Python.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+from ..core.graph import GraphTensors
+
+SRC = Path(__file__).resolve().parent / "src" / "gfa_parse.cpp"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
+
+_lock = threading.Lock()
+_state: dict = {"lib": None, "tried": False, "error": None}
+
+
+class _GfaResult(ctypes.Structure):
+    _fields_ = [
+        ("num_nodes", ctypes.c_int64),
+        ("num_edges", ctypes.c_int64),
+        ("num_paths", ctypes.c_int64),
+        ("num_steps", ctypes.c_int64),
+        ("seq_total", ctypes.c_int64),
+        ("names_total", ctypes.c_int64),
+        ("node_id", ctypes.POINTER(ctypes.c_int64)),
+        ("node_len", ctypes.POINTER(ctypes.c_int64)),
+        ("seq_offset", ctypes.POINTER(ctypes.c_int64)),
+        ("seq", ctypes.POINTER(ctypes.c_uint8)),
+        ("edge_from", ctypes.POINTER(ctypes.c_int64)),
+        ("edge_to", ctypes.POINTER(ctypes.c_int64)),
+        ("path_offset", ctypes.POINTER(ctypes.c_int64)),
+        ("step_handle", ctypes.POINTER(ctypes.c_int64)),
+        ("step_pos", ctypes.POINTER(ctypes.c_int64)),
+        ("path_names", ctypes.POINTER(ctypes.c_uint8)),
+        ("path_name_offset", ctypes.POINTER(ctypes.c_int64)),
+        ("error", ctypes.c_char_p),
+    ]
+
+
+def library_path() -> Path:
+    """The shared library of this source and these flags."""
+    key = hashlib.sha256(" ".join(CXX_FLAGS).encode() + SRC.read_bytes())
+    return BUILD_DIR / f"gfa_parse_{key.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the parser unless this key is built already; raises
+    RuntimeError when g++ is missing or fails."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    try:
+        proc = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(SRC)],
+                              capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.SubprocessError) as exc:
+        raise RuntimeError(f"g++ did not run: {exc!r}") from exc
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def get_lib() -> Optional[ctypes.CDLL]:
+    """The loaded parser (built on the first call), or None when it cannot
+    be built or loaded."""
+    with _lock:
+        if not _state["tried"]:
+            _state["tried"] = True
+            try:
+                lib = ctypes.CDLL(str(build()))
+            except (RuntimeError, OSError) as exc:
+                _state["error"] = str(exc)
+            else:
+                lib.odgi_gfa_parse.restype = ctypes.POINTER(_GfaResult)
+                lib.odgi_gfa_parse.argtypes = [ctypes.c_char_p]
+                lib.odgi_gfa_free.restype = None
+                lib.odgi_gfa_free.argtypes = [ctypes.POINTER(_GfaResult)]
+                _state["lib"] = lib
+        return _state["lib"]
+
+
+def build_error() -> Optional[str]:
+    """Why the parser is unavailable (None when it loaded or was not tried)."""
+    return _state["error"]
+
+
+def parse_gfa_native(path: str) -> Optional[GraphTensors]:
+    """Parse the GFA file `path` with the C++ parser; None when the parser
+    is unavailable.  A file the parser refuses raises ValueError."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    res = lib.odgi_gfa_parse(path.encode())
+    try:
+        r = res.contents
+        if r.error:
+            raise ValueError(r.error.decode())
+
+        def arr(ptr, n, dtype=np.int64):
+            if n == 0:
+                return np.empty(0, dtype=dtype)
+            return np.ctypeslib.as_array(ptr, shape=(n,)).astype(dtype, copy=True)
+
+        N, E, P, S = r.num_nodes, r.num_edges, r.num_paths, r.num_steps
+        names_blob = bytes(
+            np.ctypeslib.as_array(r.path_names, shape=(r.names_total,))
+        ) if r.names_total else b""
+        name_off = arr(r.path_name_offset, P + 1)
+        path_names = tuple(
+            names_blob[name_off[j]:name_off[j + 1]].decode() for j in range(P)
+        )
+        return GraphTensors(
+            node_len=arr(r.node_len, N),
+            seq_offset=arr(r.seq_offset, N + 1),
+            seq=arr(r.seq, r.seq_total, np.uint8),
+            node_id=arr(r.node_id, N),
+            edge_from=arr(r.edge_from, E),
+            edge_to=arr(r.edge_to, E),
+            path_names=path_names,
+            path_circular=np.zeros(P, dtype=bool),
+            path_offset=arr(r.path_offset, P + 1),
+            step_handle=arr(r.step_handle, S),
+            step_pos=arr(r.step_pos, S),
+        )
+    finally:
+        lib.odgi_gfa_free(res)

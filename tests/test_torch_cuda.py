@@ -19,7 +19,11 @@ simulation exactly.  The leveled kernels' tracking instances (delta early
 stop) give the untracked drift exactly and the plain versions' Delta_max
 exactly, and tracked runs on the card stop where the CPU's stop; a batched
 step on the card lies within 1e-6 of the scale of the same words' step on
-the CPU (index_add_ adds by atomics there).
+the CPU (index_add_ adds by atomics there).  The command line on the card
+(build -> sort -p Ygs -> layout -> stats) writes the Python API's bytes,
+and the stats functions that do their array work on the caller's device
+give the CPU's answer on the card: integers exact, floats within 1e-12
+relative.
 """
 
 import dataclasses
@@ -727,3 +731,119 @@ def test_batched_pinned_run_on_card(cuda, graph):
     assert np.array_equal(X[pin], x0[pin]) and not np.array_equal(X[~pin], x0[~pin])
     nt = lambda h: sum_of_path_node_distances(h, device="cpu").all_nt_space
     assert nt(g.apply_ordering(order)) < nt(g)
+
+
+def test_cli_chain_on_card_equals_api(cuda, graph, tmp_path):
+    """build -> sort -p Ygs -> layout -> stats through the command line on
+    the card (device None) write what the Python API writes on the card,
+    byte for byte, and stats prints the API's nt-distance and stress."""
+    import contextlib
+    import io
+
+    from odgi_tpu_torch.algorithms.layout import layout_graph
+    from odgi_tpu_torch.algorithms.path_sgd_sort import sort_pipeline
+    from odgi_tpu_torch.algorithms.stats import sum_of_path_node_distances
+    from odgi_tpu_torch.cli.main import main
+    from odgi_tpu_torch.io import gfa, lay, og_compat
+
+    d = str(tmp_path)
+    gfa.write_gfa(graph, f"{d}/g.gfa")
+
+    def cli(*argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert main(list(argv)) == 0
+        return out.getvalue()
+
+    cli("build", "-g", f"{d}/g.gfa", "-o", f"{d}/g.og")
+    assert gfa.LAST_PARSER["name"] == "native"
+    cli("sort", "-i", f"{d}/g.og", "-o", f"{d}/s.og", "-p", "Ygs")
+    cli("layout", "-i", f"{d}/s.og", "-o", f"{d}/s.lay")
+    nt = cli("stats", "-i", f"{d}/s.og", "-s").splitlines()[-1].split("\t")[2]
+    stress = cli("stats", "-i", f"{d}/s.og", "-s", "-c", f"{d}/s.lay").splitlines()[-1]
+    g2 = sort_pipeline(gfa.parse_gfa(f"{d}/g.gfa"), "Ygs")
+    og_compat.save_og(g2, f"{d}/api.og")
+    coords = layout_graph(og_compat.load_og(f"{d}/s.og"))
+    lay.save_layout(coords, f"{d}/api.lay")
+    for a, b in (("s.og", "api.og"), ("s.lay", "api.lay")):
+        with open(f"{d}/{a}", "rb") as fa, open(f"{d}/{b}", "rb") as fb:
+            assert fa.read() == fb.read(), a
+    assert nt == f"{sum_of_path_node_distances(g2).all_nt_space:.6g}"
+    xy = lay.load_layout(f"{d}/s.lay")
+    want = sum_of_path_node_distances(g2, (xy[:, 0], xy[:, 1])).all_2d_by_nucleotides
+    assert stress.split("\t")[2] == f"{want:.6g}"
+
+
+@pytest.fixture(scope="module")
+def stats_graph():
+    """Random walks over 400 nodes with mixed orientations, an edge for
+    every step pair, a self-loop and a reversing self-edge, PanSN path
+    names, shuffled out of id order (tests/test_torch_stats.py's walks)."""
+    rng = np.random.default_rng(5)
+    b = GraphBuilder()
+    for i in range(1, 401):
+        b.add_node(i, bytes(rng.choice(list(b"ACGTacgtN"), size=int(rng.integers(1, 5)))))
+    for pi in range(6):
+        p = b.add_path(f"sample{pi % 3}#{pi}#chr{pi % 2}")
+        n, prev = int(rng.integers(1, 401)), None
+        for _ in range(2000):
+            rev = bool(rng.integers(0, 4) == 0)
+            if prev is not None:
+                b.add_edge(prev[0], prev[1], n, rev)
+            b.append_step(p, n, rev)
+            prev = (n, rev)
+            n = int(np.clip(n + rng.integers(-2, 4), 1, 400))
+    b.add_edge(3, False, 3, False)
+    b.add_edge(5, False, 5, True)
+    return b.build().apply_ordering(rng.permutation(400), compact_ids=False)
+
+
+def _same_value(a, b):
+    """Integers and strings exact, floats within MERGE_TOL relative."""
+    if dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            _same_value(getattr(a, f.name), getattr(b, f.name))
+    elif isinstance(a, dict):
+        assert list(a) == list(b)
+        for k in a:
+            _same_value(a[k], b[k])
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _same_value(x, y)
+    elif isinstance(a, np.ndarray) and a.dtype.kind in "iub":
+        assert b.dtype.kind in "iub" and np.array_equal(a, b)
+    elif isinstance(a, (np.ndarray, float, np.floating)):
+        np.testing.assert_allclose(b, a, rtol=MERGE_TOL, atol=0)
+    else:
+        assert type(a) is type(b) and a == b, (a, b)
+
+
+_XY = np.random.default_rng(11).normal(0, 50, (2, 800))
+STATS_ON_DEVICE = {
+    "base_content": lambda s, g, d: s.base_content(g, device=d),
+    "links_1d": lambda s, g, d: s.mean_links_length(g, device=d),
+    "links_1d_no_gap": lambda s, g, d: s.mean_links_length(g, penalize_gap_links=False,
+                                                           device=d),
+    "links_2d": lambda s, g, d: s.mean_links_length(g, xy=tuple(_XY), device=d),
+    "distances_1d": lambda s, g, d: s.sum_of_path_node_distances(g, device=d),
+    "distances_2d_orient": lambda s, g, d: s.sum_of_path_node_distances(
+        g, xy=tuple(_XY), penalize_diff_orientation=True, device=d),
+    "feedback_arcs": lambda s, g, d: s.weighted_feedback_arcs(g, device=d),
+    "reversing_joins": lambda s, g, d: s.weighted_reversing_joins(g, device=d),
+    "links_per_nuc": lambda s, g, d: s.links_length_per_nuc(g, device=d),
+    "classes_sample": lambda s, g, d: s.pangenome_class_counts(g, "#", 0, device=d),
+    "classes_chrom": lambda s, g, d: s.pangenome_class_counts(g, "#", 2, device=d),
+    "self_loops": lambda s, g, d: s.unique_self_loop_nodes(g, device=d),
+}
+
+
+@pytest.mark.parametrize("case", list(STATS_ON_DEVICE))
+def test_stats_on_card_equal_cpu(cuda, stats_graph, case):
+    """Every stats function that does its array work on the caller's
+    device (the CLI's stats flags on the card) gives the CPU's answer:
+    integers exact, floats within MERGE_TOL relative."""
+    from odgi_tpu_torch.algorithms import stats
+
+    fn = STATS_ON_DEVICE[case]
+    _same_value(fn(stats, stats_graph, "cpu"), fn(stats, stats_graph, cuda))
