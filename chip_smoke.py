@@ -77,6 +77,37 @@ Phases, each printing one line or more:
      group, and lies within 1e-4 of the scale of path_sgd_2d on the
      resident route; each graph's stacked plan's first group of its last
      device goes through the kernels against their plain versions.
+  9. the multi-device batched sampler (odgi_tpu_torch.parallel.sharded),
+     after phase 7: on the smoke graph of phase 4 at 4 devices simulated
+     ("iteration" consensus, default schedules), sharded_sort_order (gated
+     on nt-distance below its start, printed beside phase 4's strata Y)
+     and sharded_layout of the sorted graph (gated at most 5% above the
+     stress of phase 4b's single-device batched -u layout, whose wall
+     without snapshots it prints beside its own): each wall, batch rounds,
+     rounds/s, valid pairs/s over the wall (the pairs counted in an
+     untimed replay of the run's sampling), and the CUDA events of one
+     round and their device ms (torch.profiler over a run of 3 rounds, cut
+     at each round's one scatter: two readings of a round, which stand
+     only where they hold the same events name by name; else they print
+     as null).  Then on
+     a DRB1-scale graph (12 paths, 35,064 steps over 4,955 nodes, from
+     synth_graph), 1D and 2D: "batch" consensus at 4 devices against the
+     batched path's own update of one batch of 4 B pairs on the same
+     words; one device simulated against a one-rank NCCL group (one
+     iteration of two rounds); the local accumulators on the card against
+     the CPU; each within 1e-6 of its scale;
+ 10. the rest of the command line (odgi_tpu_torch.cli.main, device None),
+     on phase 4c's smoke .otg: sort -p with each code n f r b z w c d e l
+     and the chain Ygsbw, each sorted graph bit-equal to sort_pipeline on
+     the CPU in this run (the chain's Y through the entry point on the
+     card; counted, the resident 1D kernels); stats --is-acyclic,
+     --count-walks, --shortest-cycle and paths -L, -l, -f, -H, each
+     printout equal to the CPU's; each command's wall.  sort -p l and
+     stats --shortest-cycle run on the 1,000-step graph instead: on the
+     smoke graph each took more than 200 s of a CPU (a BFS and a term loop
+     a node in Python; a Dijkstra from every node), past the 60 s these
+     phases allow a command.  Then sort -Y -u on the 1,000-step graph:
+     100 .og snapshots, the last equal to the result.
 Every path runs with the launch counts set to 0 just before it and read
 just after; every SPIN_EVERY-th launch of a kernel on it is queued behind a
 spin kernel, so that its time holds the kernel alone; each prints the
@@ -92,6 +123,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import datetime
 import glob
 import io
@@ -117,7 +149,7 @@ from odgi_tpu_torch.io import og as og_io
 from odgi_tpu_torch.ops import (batched_sgd, kernels, sgd, strata_levels, strata_plan,
                                 strata_route, strata_sgd, strata_xl, strata_xxl)
 from odgi_tpu_torch.ops.sgd import derive_config_1d, derive_config_2d
-from odgi_tpu_torch.parallel import sharded_strata
+from odgi_tpu_torch.parallel import sharded, sharded_strata
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
@@ -150,6 +182,13 @@ BIG_STRESS_AFTER_MAX = 1.353   # BIGSCALE's 1.2882 plus 5%
 SHARDED_DEVICES = 4
 SHARDED_STRESS_RATIO = 1.05    # a sharded stress at most 5% above the graph's single-device one
 SHARDED_ONE_TOL = 1e-4         # one device against path_sgd_2d (resident), of the scale
+SAMPLER_DEVICES = 4           # phase 9: simulated devices of the batched sampler
+SAMPLER_TOL = 1e-6            # phase 9 checks, of the scale (PERF.md §2's batched bar)
+SAMPLER_CHECK_BATCH = 4096    # n x B = 16,384 <= the DRB1-scale graph's steps: one window
+DRB1 = (35_064, 4_955, 2_922)  # steps, nodes, steps a path: DRB1-3123's 12 paths and nodes
+CLI_CODES = "nfrbzwcdel"      # phase 10: every sort code but Y g s (phases 4 and 4c)
+CLI_CHAIN = "Ygsbw"           # phase 10's chain of codes
+SLOW_ON_SMOKE = ("l", "--shortest-cycle")  # phase 10 on the 1,000-step graph (see the docstring)
 SHORT_TERMS = 1024 * 1024      # short plans: a few hundred chunks a group
 BUSY_CYCLES = 2_000_000        # about 1 ms of the card's clock, past any wrapper's host time
 SPIN_EVERY = 20                # every 20th launch of a kernel on a counted path runs behind
@@ -1141,9 +1180,9 @@ def same_fields(a, b) -> bool:
 
 def batch_profile(g, dev) -> dict:
     """One 2D batch of the batched path on `g` at its default batch:
-    device ms behind a spin kernel, and the CUDA kernels it launches as
-    torch.profiler counts them (None where the profiler sees no device
-    event)."""
+    device ms behind a spin kernel, and the CUDA events of a batch
+    (``repeat_events`` over three batches; None where its readings
+    disagree)."""
     cfg = derive_config_2d(g)
     data = batched_sgd.SgdData.build(g, cfg.theta, cfg.space, cfg.space_max,
                                      cfg.space_quantization_step, device=dev)
@@ -1158,23 +1197,12 @@ def batch_profile(g, dev) -> dict:
 
     one_batch()
     ms = [timed(one_batch) for _ in range(5)]
-    kernels_per_batch = None
-    try:
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            one_batch()
-            torch.cuda.synchronize()
-        n = sum(1 for e in prof.events() if getattr(e, "device_type", None) is not None
-                and e.device_type.name == "CUDA")
-        kernels_per_batch = n or None
-    except Exception as exc:  # the profiler is untried on the card's machine
-        say("profiler", error=repr(exc))
+    prof = repeat_events(lambda: [one_batch() for _ in range(3)], 3)
     return dict(batch_size=cfg.batch_size, batch_ms=sum(ms) / len(ms), batch_ms_all=ms,
-                kernels_per_batch=kernels_per_batch)
+                kernels_per_batch=prof["kernels"], batch_events=prof)
 
 
-def phase_options(smoke: dict, sm: dict, tmp: str, dev, rec: Record) -> None:
+def phase_options(smoke: dict, sm: dict, tmp: str, dev, rec: Record) -> dict:
     g, g_Y, g2, coords4, p1, p2 = (sm[k] for k in ("g", "g_Y", "g2", "coords", "p1", "p2"))
     cfg1, cfg2 = derive_config_1d(g), derive_config_2d(g2)
     groups = {"1d": p1["groups"], "2d": p2["groups"]}
@@ -1319,6 +1347,7 @@ def phase_options(smoke: dict, sm: dict, tmp: str, dev, rec: Record) -> None:
     t0 = time.perf_counter()
     batched_sgd.path_sgd_2d_batched(g2, c0, cfg2, device=dev)
     out["without_snapshots_s"] = sync_wall(t0)
+    snap = dict(snap_stress=out["stress_after"], snap_without_snapshots_s=out["without_snapshots_s"])
     say("main_path", path="opt-snap", **out)
     if out["layout"]["route"] != "batched" or any(out["launches"].values()):
         fail(f"opt-snap: route {out['layout']['route']}, launches {out['launches']}")
@@ -1401,6 +1430,7 @@ def phase_options(smoke: dict, sm: dict, tmp: str, dev, rec: Record) -> None:
         fail(f"opt-small: quality did not improve {out}")
 
     say("batched_batch", graph="smoke-sorted", **batch_profile(g2, dev))
+    return snap
 
 
 # ---------------------------------------------------------------------------
@@ -1878,6 +1908,302 @@ def phase_sharded(label: str, g, single_stress: float, dev, rec: Record,
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: the multi-device batched sampler
+# ---------------------------------------------------------------------------
+
+
+def device_events(fn) -> list:
+    """The CUDA device events fn() gives rise to, as torch.profiler
+    records them (memcpy and memset included), in the order they ran.  The
+    queue is drained before the window opens, so no earlier work falls
+    into it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if getattr(e, "device_type", None) is not None
+           and e.device_type.name == "CUDA"]
+    return sorted(evs, key=lambda e: e.time_range.start)
+
+
+def sampler_run(g, cfg, one_d: bool, num_batches: int, n_dev=None, consensus="iteration",
+                words=None, dev=None):
+    """One run of the sampler on `g` from its default start."""
+    x0 = g.node_offset if one_d else ot.init_layout(g, "d")
+    return sharded.sharded_positions(g, x0, cfg, one_d, n_dev, consensus, dev, words,
+                                     num_batches)
+
+
+def repeat_events(fn, reps: int) -> dict:
+    """The CUDA events of one repeat of the work fn() does `reps` times in
+    one profiled window, each repeat launching one scatter (``index_add_``,
+    an ``indexFunc`` kernel): the events after one scatter up to and
+    including the next are one repeat, so the window gives reps - 1
+    readings.  They stand only where they hold the same events name by
+    name; else the profiler lost or added records inside the window, the
+    counts are None and every reading is printed by name.  (Differences
+    of separately profiled windows do not hold: each window loses a
+    varying number of its first events.)"""
+    evs = device_events(fn)
+    cuts = [k for k, e in enumerate(evs) if "indexFunc" in e.name]
+    spans = [evs[cuts[k] + 1:cuts[k + 1] + 1] for k in range(len(cuts) - 1)]
+    reads = [collections.Counter(e.name[:60] for e in r) for r in spans]
+    agree = len(cuts) == reps and all(r == reads[0] for r in reads)
+    out = dict(events_agree=agree, scatters_traced=len(cuts),
+               events=dict(reads[-1]) if reads else None)
+    if not agree:
+        out["events_readings"] = [dict(r) for r in reads]
+    out["kernels"] = len(spans[0]) if agree else None
+    out["device_ms"] = (sum(e.time_range.elapsed_us() for r in spans for e in r)
+                        / (1e3 * len(spans)) if agree else None)
+    return out
+
+
+def round_profile(g, cfg, one_d: bool, dev) -> dict:
+    """The CUDA events of one batch round at SAMPLER_DEVICES simulated
+    devices and their summed device ms: ``repeat_events`` of a run of one
+    iteration of 3 rounds, after a warm-up run on the same tables."""
+    cfg1 = dataclasses.replace(cfg, iter_max=1)
+    make = sharded.make_sharded_sgd_1d if one_d else sharded.make_sharded_sgd_2d
+    data = batched_sgd.SgdData.build(g, cfg.theta, cfg.space, cfg.space_max,
+                                     cfg.space_quantization_step, device=dev)
+    x = torch.as_tensor((g.node_offset if one_d else ot.init_layout(g, "d")).astype(np.float32),
+                        device=dev)
+    etas = torch.tensor([np.float32(cfg.eta_max)], device=dev)
+    run = make(cfg1, 3, n_dev=SAMPLER_DEVICES)
+    run(x, etas, data)
+    prof = repeat_events(lambda: run(x, etas, data), 3)
+    out = {f"round_{k}": v for k, v in prof.items() if k.startswith(("events", "scatters"))}
+    out.update(kernels_per_round=prof["kernels"], device_ms_per_round=prof["device_ms"])
+    return out
+
+
+def valid_pairs(g, cfg, one_d: bool, dev) -> int:
+    """The valid pairs of the run `sharded_positions` makes of `g` at
+    SAMPLER_DEVICES simulated devices with its own generators: a replay of
+    its rounds' sampling and pair updates (``pair_acc_*``, whose valid
+    lanes are the counted ones) against a zero table, without the timing
+    window.  The pairs depend on the words and the tables only, not on
+    the coordinates."""
+    n, B = SAMPLER_DEVICES, cfg.batch_size
+    data = batched_sgd.SgdData.build(g, cfg.theta, cfg.space, cfg.space_max,
+                                     cfg.space_quantization_step, device=dev)
+    words = sharded.generator_words(cfg, range(n), dev)
+    starts = torch.as_tensor(sharded.batch_starts(cfg, cfg.num_batches, n, range(n),
+                                                  data.num_steps, data.tab_a.shape[1]),
+                             device=dev)
+    acc_fn = batched_sgd.pair_acc_1d if one_d else batched_sgd.pair_acc_2d
+    table = torch.zeros((g.num_nodes if one_d else 2 * g.num_nodes, 1 if one_d else 2),
+                        dtype=torch.float32, device=dev)
+    lanes = torch.arange(B, device=dev)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for it in range(cfg.iter_max):
+        cooling = it > cfg.first_cooling_iteration if one_d else it >= cfg.first_cooling_iteration
+        for b in range(cfg.num_batches):
+            w = torch.stack([words(it, b, d) for d in range(n)], dim=1)
+            pairs, _ = batched_sgd.pairs_from_cols(data.tab_a[:, starts[it, b][:, None] + lanes],
+                                                   w, data, cfg, cooling)
+            total += acc_fn(table, pairs, 1.0)[2].sum()
+    return int(total)
+
+
+def phase_sampler(ins: dict, dev) -> dict:
+    """The sampler through sharded_sort_order and sharded_layout on the
+    smoke graph at SAMPLER_DEVICES simulated devices ("iteration"
+    consensus, default schedules), then the DRB1-scale checks."""
+    g, g2, n = ins["g"], ins["g2"], SAMPLER_DEVICES
+    out = {}
+    cfg1, cfg2 = derive_config_1d(g), derive_config_2d(g2)
+    t0 = time.perf_counter()
+    order = sharded.sharded_sort_order(g, n_dev=n, device=dev)
+    wall = sync_wall(t0)
+    rounds, valid = cfg1.iter_max * cfg1.num_batches, valid_pairs(g, cfg1, True, dev)
+    out["sort"] = dict(
+        wall_s=wall, rounds=rounds, rounds_per_s=rounds / wall, batch_size=cfg1.batch_size,
+        valid_pairs=valid, valid_pairs_per_s_wall=valid / wall,
+        nt_before=ins["nt_before"],
+        nt_after=ot.sum_of_path_node_distances(g.apply_ordering(order, compact_ids=True),
+                                               device=dev).all_nt_space,
+        nt_after_Y_strata=ins["nt_after_Y"], **round_profile(g, cfg1, True, dev))
+    t0 = time.perf_counter()
+    coords = sharded.sharded_layout(g2, n_dev=n, device=dev)
+    wall = sync_wall(t0)
+    rounds, valid = cfg2.iter_max * cfg2.num_batches, valid_pairs(g2, cfg2, False, dev)
+    c0 = ot.init_layout(g2, "d")
+    out["layout"] = dict(
+        wall_s=wall, rounds=rounds, rounds_per_s=rounds / wall, batch_size=cfg2.batch_size,
+        valid_pairs=valid, valid_pairs_per_s_wall=valid / wall,
+        stress_before=stress_of(g2, c0, dev), stress_after=stress_of(g2, coords, dev),
+        single_device_batched_stress=ins["snap_stress"],
+        single_device_batched_s=ins["snap_without_snapshots_s"],
+        **round_profile(g2, cfg2, False, dev))
+    for k in ("sort", "layout"):
+        # the share of the wall the card is busy, from the profiled rounds
+        o, ms = out[k], out[k]["device_ms_per_round"]
+        o["device_busy_share"] = None if ms is None else ms * o["rounds"] / (1e3 * o["wall_s"])
+    out["layout"]["stress_ratio"] = out["layout"]["stress_after"] / ins["snap_stress"]
+    out["layout"]["wall_over_single_device"] = wall / ins["snap_without_snapshots_s"]
+    say("main_path", path="sampler-smoke", devices=n, consensus="iteration", **out)
+    if sorted(order.tolist()) != list(range(g.num_nodes)):
+        fail("sampler-smoke: the sort order is not a permutation of the nodes")
+    if not out["sort"]["nt_after"] < out["sort"]["nt_before"]:
+        fail(f"sampler-smoke: nt-distance {out['sort']['nt_after']} not below its start "
+             f"{out['sort']['nt_before']}")
+    if not np.isfinite(coords).all():
+        fail("sampler-smoke: coordinates not finite")
+    if not out["layout"]["stress_after"] <= SHARDED_STRESS_RATIO * ins["snap_stress"]:
+        fail(f"sampler-smoke: stress {out['layout']['stress_after']} > {SHARDED_STRESS_RATIO} "
+             f"x the single-device batched layout's {ins['snap_stress']}")
+    out["drb1"] = sampler_checks(dev)
+    return out
+
+
+def sampler_checks(dev) -> dict:
+    """On the DRB1-scale graph, 1D and 2D: "batch" consensus at
+    SAMPLER_DEVICES devices against the batched path's own update of one
+    batch of n B pairs on the same words; one device simulated against a
+    one-rank NCCL group; the first batch's local accumulators on the card
+    against the CPU on the same words.  Each within SAMPLER_TOL of its
+    scale, for one iteration of one or two rounds: past a few rounds the
+    order in which the card's index_add_ adds, amplified where two 2D
+    endpoints coincide, parts any two runs."""
+    gd, n = shuffled_graph(*DRB1), SAMPLER_DEVICES
+    out = dict(steps=gd.num_steps, nodes=gd.num_nodes, paths=gd.num_paths)
+    for one_d in (True, False):
+        tag = "1d" if one_d else "2d"
+        derive = derive_config_1d if one_d else derive_config_2d
+        cfg = derive(gd, iter_max=1, batch_size=SAMPLER_CHECK_BATCH)
+        B = cfg.batch_size
+        data = batched_sgd.SgdData.build(gd, cfg.theta, cfg.space, cfg.space_max,
+                                         cfg.space_quantization_step, device=dev)
+        x0 = torch.as_tensor((gd.node_offset if one_d else ot.init_layout(gd, "d"))
+                             .astype(np.float32), device=dev)
+        draw = sharded.generator_words(cfg, range(n), dev)
+        words = [draw(0, 0, d) for d in range(n)]
+        got = sampler_run(gd, cfg, one_d, 1, n, "batch", lambda it, b, d: words[d], dev)
+        cooling = 0 > cfg.first_cooling_iteration if one_d else 0 >= cfg.first_cooling_iteration
+        eta = torch.tensor(np.float32(sgd.sgd_schedule(
+            1.0 / cfg.eta_max, 1.0, 1, cfg.iter_with_max_learning_rate, cfg.eps)[0]), device=dev)
+        pairs, _ = batched_sgd.sample_pairs(torch.cat(words, dim=1), 0, data,
+                                            dataclasses.replace(cfg, batch_size=n * B), cooling)
+        want, _ = (batched_sgd.update_1d if one_d else batched_sgd.update_2d)(x0, pairs, eta)
+        scale = float(want.abs().max())
+        res = dict(batch_size=B, batch_vs_big_batch_err=rel_err(got, want, scale))
+
+        sim = sampler_run(gd, cfg, one_d, 2, 1, dev=dev)
+        nccl = nccl_one_rank(lambda: sampler_run(gd, cfg, one_d, 2, dev=dev))
+        res["one_rank_nccl_err"] = rel_err(nccl, sim, float(sim.abs().max()))
+
+        w = batched_sgd.draw_words(torch.Generator().manual_seed(7), B, "cpu")
+        data_cpu = batched_sgd.SgdData.build(gd, cfg.theta, cfg.space, cfg.space_max,
+                                             cfg.space_quantization_step, device="cpu")
+        acc = sharded.local_acc_1d if one_d else sharded.local_acc_2d
+        a_card = acc(x0, w.to(dev), 0, data, cfg, eta, cooling).cpu()
+        a_cpu = acc(x0.cpu(), w, 0, data_cpu, cfg, eta.cpu(), cooling)
+        res["local_acc_counts_equal"] = bool(torch.equal(a_card[:, -1], a_cpu[:, -1]))
+        res["local_acc_err"] = rel_err(a_card, a_cpu, float(a_cpu[:, :-1].abs().max()))
+        out[tag] = res
+    say("sampler_checks", graph="drb1-scale", **out)
+    for tag in ("1d", "2d"):
+        r = out[tag]
+        for k in ("batch_vs_big_batch_err", "one_rank_nccl_err", "local_acc_err"):
+            if not r[k] <= SAMPLER_TOL:
+                fail(f"sampler {tag}: {k} {r[k]:.3e} > {SAMPLER_TOL}")
+        if not r["local_acc_counts_equal"]:
+            fail(f"sampler {tag}: the card's pair counts differ from the CPU's")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the rest of the command line
+# ---------------------------------------------------------------------------
+
+
+def cli_cpu(argv: list) -> str:
+    """The stdout of one command on the CPU."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        rc = cli_main.main(argv, device="cpu")
+    if rc != 0:
+        fail(f"cli on the CPU {' '.join(argv)}: exit {rc}")
+    return out.getvalue()
+
+
+def phase_cli_rest(tmp: str, dev, rec: Record) -> dict:
+    """Every sort code, a chain of codes, stats --is-acyclic /
+    --count-walks / --shortest-cycle and paths -L -l -f -H through the
+    command line on the card (device None), on phase 4c's smoke .otg, those
+    in SLOW_ON_SMOKE on the 1,000-step graph: each sorted graph bit-equal
+    to sort_pipeline on the CPU in this run (the chain's Y through the
+    entry point on the card), each printout equal to the CPU's; then
+    sort -Y -u on the 1,000-step graph.  Counted: the chain's Y runs the
+    resident 1D kernels."""
+    smoke, small = os.path.join(tmp, "smoke.otg"), os.path.join(tmp, "small.otg")
+    og_io.save_graph(shuffled_graph(*SMALL), small)
+    g_smoke = og_io.load_graph(smoke)
+    chain_want = ot.sort_pipeline(ot.sort_pipeline(g_smoke, CLI_CHAIN[0], device=dev),
+                                  CLI_CHAIN[1:], device="cpu")
+    src_of = lambda what: small if what in SLOW_ON_SMOKE else smoke
+
+    def run():
+        walls, out = {}, dict(sort={}, stats={}, paths={})
+        for code in list(CLI_CODES) + [CLI_CHAIN]:
+            src, dst = src_of(code), os.path.join(tmp, f"sort_{code}.otg")
+            cli(["sort", "-i", src, "-o", dst, "-p", code], walls)
+            want = chain_want if code == CLI_CHAIN else \
+                ot.sort_pipeline(og_io.load_graph(src), code, device="cpu")
+            out["sort"][code] = dict(graph="small" if src == small else "smoke",
+                                     wall_s=walls["sort"][-1],
+                                     equal_to_cpu=same_fields(og_io.load_graph(dst), want))
+        for flag in ("--is-acyclic", "--count-walks", "--shortest-cycle"):
+            argv = ["stats", "-i", src_of(flag), flag]
+            printed, _ = cli(argv, walls)
+            out["stats"][flag] = dict(graph="small" if argv[2] == small else "smoke",
+                                      wall_s=walls["stats"][-1], printed=printed.strip(),
+                                      equal_to_cpu=printed == cli_cpu(argv))
+        for flag in ("-L", "-l", "-f", "-H"):
+            argv = ["paths", "-i", smoke, flag]
+            printed, _ = cli(argv, walls)
+            out["paths"][flag] = dict(wall_s=walls["paths"][-1], bytes=len(printed),
+                                      equal_to_cpu=printed == cli_cpu(argv))
+        prefix, res = os.path.join(tmp, "usnap"), os.path.join(tmp, "sort_u.og")
+        cli(["sort", "-i", small, "-o", res, "-Y", "-u", prefix], walls)
+        iters = derive_config_1d(og_io.load_graph(small)).iter_max
+        snaps = [f for f in os.listdir(tmp) if re.fullmatch(r"usnap\d+", f)]
+        with open(f"{prefix}{iters}", "rb") as a, open(res, "rb") as b:
+            last_equal = a.read() == b.read()
+        out["sort_u"] = dict(graph="small", wall_s=walls["sort"][-1], snapshots=len(snaps),
+                             iterations=iters, last_equals_result=last_equal)
+        return out
+
+    out = counted("cli-rest", rec, run, levels=("1d",))
+    p1 = strata_plan.plan_run(g_smoke, derive_config_1d(g_smoke), one_d=True)
+    key = "cli-rest/1d"
+    rec.bounds[LEVELS_1D][key] = chunk_bounds(p1, True)
+    rec.bounds["strata_merge_sum"][key] = [merge_sum_bound(g_smoke, True)]
+    rec.bounds["strata_merge_bcast"][key] = [merge_bcast_bound(g_smoke, p1["data"].num_slots,
+                                                               True)]
+    borrow_times(rec, "smoke", "cli-rest")
+    say("main_path", path="cli-rest", **out)
+    bad = [f"{k} {w}" for k in ("sort", "stats", "paths") for w, v in out[k].items()
+           if not v["equal_to_cpu"]]
+    if bad:
+        fail(f"cli-rest: differs from the CPU: {bad}")
+    su = out["sort_u"]
+    if su["snapshots"] != su["iterations"] or not su["last_equals_result"]:
+        fail(f"cli-rest: sort -u wrote {su['snapshots']} snapshots of {su['iterations']}, "
+             f"the last equal to the result: {su['last_equals_result']}")
+    for n in kernels.NAMES:
+        want = p1["groups"] if n in (LEVELS_1D, "strata_merge_sum", "strata_merge_bcast") else 0
+        if out["launches"][n] != want:
+            fail(f"cli-rest: {n} launched {out['launches'][n]} times, expected {want} (the "
+                 f"chain's Y on the resident route)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: the 1M-node path
 # ---------------------------------------------------------------------------
 
@@ -2107,8 +2433,11 @@ def main() -> int:
         say("gfa", seconds=time.perf_counter() - t0, bytes=os.path.getsize(gfa))
         phase_kernels(ot.parse_gfa(gfa, device=dev), dev, rec)
         smoke, g_smoke, smoke_state = phase_smoke(gfa, tmp, dev, rec)
-        phase_options(smoke, smoke_state, tmp, dev, rec)
+        snap = phase_options(smoke, smoke_state, tmp, dev, rec)
         phase_cli(gfa, tmp, smoke, smoke_state, dev, rec)
+        sampler_in = dict(g=smoke_state["g"], g2=smoke_state["g2"], nt_before=smoke["nt_before"],
+                          nt_after_Y=ot.sum_of_path_node_distances(
+                              smoke_state["g_Y"], device=dev).all_nt_space, **snap)
         del smoke_state
 
         t0 = time.perf_counter()
@@ -2127,6 +2456,9 @@ def main() -> int:
         phase_sharded("xl", g_xl2, xl["stress_after"], dev, rec)
         del g_smoke, g_xl2
         phase_big(g_big, tmp, dev, rec)
+        del g_big
+        phase_sampler(sampler_in, dev)
+        phase_cli_rest(tmp, dev, rec)
 
     print(json.dumps(kernel_line(rec)), flush=True)
     print(smi, flush=True)

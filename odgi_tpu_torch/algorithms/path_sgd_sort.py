@@ -1,7 +1,8 @@
 """PG-SGD 1D sort and the sort pipeline ("Ygs").
 
 Run 1D PG-SGD, then order nodes by (weakly-connected component, X, rank);
-the pipeline chains sort passes by one-letter codes.
+the pipeline chains sort passes by one-letter codes, every code of
+``odgi_tpu``'s pipeline.
 """
 
 from __future__ import annotations
@@ -13,15 +14,19 @@ import torch
 
 from ..core.graph import GraphTensors, handle_rank
 from ..device import resolve_device
-from ..ops.sgd import SgdConfig, derive_config_1d, not_ported, path_sgd_1d
+from ..io.og_compat import save_og
+from ..ops.sgd import SgdConfig, derive_config_1d, path_sgd_1d
 from ..utils.progress import ProgressMeter
 from .components import weak_component_ids
+from .graph_misc import eades_order, linear_sgd_order
 from .groom import apply_groom
+from .sorts_extra import (breadth_first_topological_order, cycle_breaking_order,
+                          dagify_sort_order, depth_first_topological_order,
+                          two_way_topological_order)
 from .topological import topological_order
 
-# The codes of this slice; the reference's others wait for the host
-# algorithm modules (ROADMAP.md queue 1 item 13).
-SUPPORTED_CODES = "Ygs"
+# Every code of odgi_tpu's sort pipeline.
+CODES = "Ygsnfrbzwcdel"
 
 
 def order_from_x(g: GraphTensors, X) -> np.ndarray:
@@ -60,42 +65,86 @@ def path_sgd_order(g: GraphTensors, cfg: Optional[SgdConfig] = None,
     return (order, X) if return_x else order
 
 
+def _snapshot_writer(g: GraphTensors, prefix: str):
+    """-u: after iteration it, write `g` sorted by that iteration's X as
+    the .og file "<prefix><it + 1>"."""
+
+    def write(it, X):
+        save_og(g.apply_ordering(order_from_x(g, X), compact_ids=True), f"{prefix}{it + 1}")
+
+    return write
+
+
+def _progress_meter(g: GraphTensors, sgd_overrides: Optional[dict]):
+    """-P: a meter of the Y pass's iterations on stderr, as its callback."""
+    meter = ProgressMeter(derive_config_1d(g, **(sgd_overrides or {})).iter_max,
+                          "[odgi_tpu_torch::sort] 1D PG-SGD iterations")
+
+    def tick(it, X):
+        meter.increment()
+        if it + 1 >= meter.total:
+            meter.finish()
+
+    return tick
+
+
 def sort_pipeline(g: GraphTensors, pipeline: str = "Ygs", sgd_overrides: Optional[dict] = None,
                   target_paths: Optional[Sequence[int]] = None,
                   use_paths: Optional[Sequence[int]] = None,
                   snapshot_prefix: Optional[str] = None, progress: bool = False,
-                  device=None) -> GraphTensors:
-    """Apply a chain of sort passes: Y (1D PG-SGD on `device`, with the
-    config overrides `sgd_overrides`, the pinned `target_paths` and the
-    path subset `use_paths`; `progress` shows a meter of its iterations on
-    stderr, whose per-iteration callback takes the batched path, as in
-    ``odgi_tpu``), g (groom), s (topological order from the heads)."""
+                  bfs_chunk: int = 0, dfs_chunk: int = 0, device=None) -> GraphTensors:
+    """Apply a chain of sort passes, one a code:
+    Y  1D PG-SGD on `device`, with the config overrides `sgd_overrides`,
+       the pinned `target_paths` and the path subset `use_paths`; with
+       `snapshot_prefix` each iteration's order is written as the .og file
+       "<prefix><iteration>", and `progress` (without snapshots) shows a
+       meter of its iterations on stderr; either callback takes the batched
+       path, as in ``odgi_tpu``;
+    g  groom;  s  topological order from the heads;  n  without them;
+    f  reverse the order;  r  a random order (default_rng(9399220));
+    b / z  breadth- / depth-first from the heads (`bfs_chunk` / `dfs_chunk`
+       are taken and, as in ``odgi_tpu``, change nothing);
+    w  two-way topological;  c  cycle breaking;  d  dagify;
+    e  Eades' feedback-arc-set order;  l  the non-path linear SGD order.
+    An unknown code raises ValueError before any pass runs."""
     dev = resolve_device(device)
     for c in pipeline:
-        if c not in SUPPORTED_CODES:
-            raise not_ported(f"sort pipeline code {c!r}", 13)
-    if snapshot_prefix:
-        raise not_ported("per-iteration .og snapshots of the sort (-u)", 13)
+        if c not in CODES:
+            raise ValueError(f"unsupported sort pipeline code {c!r}")
     for c in pipeline:
         if c == "Y":
             snapshot_cb = None
-            if progress:
-                meter = ProgressMeter(derive_config_1d(g, **(sgd_overrides or {})).iter_max,
-                                      "[odgi_tpu_torch::sort] 1D PG-SGD iterations")
-
-                def snapshot_cb(it, X, _m=meter):
-                    _m.increment()
-                    if it + 1 >= _m.total:
-                        _m.finish()
-
-            g = g.apply_ordering(
-                path_sgd_order(g, use_paths=use_paths, overrides=sgd_overrides,
-                               target_paths=target_paths, snapshot_cb=snapshot_cb,
-                               device=dev),
-                compact_ids=True,
-            )
+            if snapshot_prefix:
+                snapshot_cb = _snapshot_writer(g, snapshot_prefix)
+            elif progress:
+                snapshot_cb = _progress_meter(g, sgd_overrides)
+            order = path_sgd_order(g, use_paths=use_paths, overrides=sgd_overrides,
+                                   target_paths=target_paths, snapshot_cb=snapshot_cb,
+                                   device=dev)
         elif c == "g":
             g = apply_groom(g)
+            continue
         elif c == "s":
-            g = g.apply_ordering(topological_order(g, use_heads=True), compact_ids=True)
+            order = topological_order(g, use_heads=True)
+        elif c == "n":
+            order = topological_order(g, use_heads=False)
+        elif c == "f":
+            order = np.arange(g.num_nodes - 1, -1, -1, dtype=np.int64)
+        elif c == "r":
+            order = np.random.default_rng(9399220).permutation(g.num_nodes).astype(np.int64)
+        elif c == "b":
+            order = breadth_first_topological_order(g, bfs_chunk)
+        elif c == "z":
+            order = depth_first_topological_order(g, dfs_chunk)
+        elif c == "w":
+            order = two_way_topological_order(g)
+        elif c == "c":
+            order = cycle_breaking_order(g)
+        elif c == "d":
+            order = dagify_sort_order(g)
+        elif c == "e":
+            order = eades_order(g)
+        else:  # "l"
+            order = linear_sgd_order(g)
+        g = g.apply_ordering(order, compact_ids=True)
     return g

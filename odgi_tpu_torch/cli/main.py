@@ -1,16 +1,20 @@
-"""The port's command line: the subcommands of the main path.
+"""The port's command line: every subcommand ``odgi_tpu/cli/main.py``
+registers itself.
 
-``python -m odgi_tpu_torch.cli build|view|validate|sort|layout|stats|version``
-takes the flags of ``python -m odgi_tpu.cli`` for those subcommands, flag
-for flag, and writes the same bytes.  Graph inputs are GFA text, the
-native ``.otg`` container or the reference's ``.og``, told apart by their
-first bytes.  ``sort`` and ``layout`` run the PG-SGD through the port's
-kernels on the card; ``stats`` computes its array metrics there.
+``python -m odgi_tpu.cli build|view|validate|stats|sort|layout|paths|version``
+has its counterpart in ``python -m odgi_tpu_torch.cli``, which takes the same
+flags, flag for flag, and writes the same bytes: every sort code and
+``sort -u``, ``stats --is-acyclic / --count-walks / --shortest-cycle``,
+and every flag of ``paths``.  Graph inputs are GFA text, the native
+``.otg`` container or the reference's ``.og``, told apart by their first
+bytes.  ``sort`` and ``layout`` run the PG-SGD through the port's kernels
+on the card; ``stats`` computes its array metrics there; the other sort
+codes, the graph walks of ``stats`` and ``paths`` are host code.  The
+subcommands of ``odgi_tpu/cli/commands2.py`` and ``commands3.py`` are not
+ported yet.
 
 ``main(argv, device)`` runs on the card when `device` is None and raises
-without one; the tests pass ``device="cpu"``.  A part that is not ported
-yet (a sort code, ``stats --is-acyclic``) ends the command with its
-``not_ported`` text on stderr and exit code 1.
+without one; the tests pass ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ from typing import List, Optional
 import numpy as np
 
 from ..algorithms import stats
+from ..algorithms import paths_cmd as pc
 from ..algorithms.components import num_self_loops, weak_components
+from ..algorithms.graph_misc import count_walks, is_acyclic, shortest_cycle_length
 from ..algorithms.layout import layout_graph, layout_to_tsv
 from ..algorithms.path_sgd_sort import sort_pipeline
 from ..algorithms.topological import topological_order
@@ -36,7 +42,7 @@ from ..io.gfa import parse_gfa, write_gfa
 from ..io.lay import load_layout, save_lay, save_layout
 from ..io.og import MAGIC, load_graph, save_graph
 from ..io.og_compat import OG_MAGIC_BE, load_og, save_og
-from ..ops.sgd import derive_config_2d, not_ported
+from ..ops.sgd import derive_config_2d
 from ..utils.metrics import StepMetrics, maybe_profile
 from ..utils.progress import ProgressMeter
 from .. import version
@@ -123,11 +129,6 @@ def _g(v) -> str:
 
 def cmd_stats(args):
     """`odgi stats`: TSV, or YAML with -y and MultiQC with -m."""
-    for flag, what in (("is_acyclic", "is_acyclic"), ("count_walks", "count_walks"),
-                       ("shortest_cycle", "shortest_cycle_length")):
-        if getattr(args, flag):
-            raise not_ported(f"stats --{flag.replace('_', '-')} "
-                             f"(algorithms/graph_misc.py {what})", 12)
     dev = args.device
     g = load_any(args.input, dev)
     yaml = bool(args.yaml or args.multiqc)
@@ -160,6 +161,7 @@ def cmd_stats(args):
             args.penalize_different_orientation, args.path_statistics,
             args.weighted_feedback_arc, args.weighted_reversing_join,
             args.links_length_per_nuc, args.multiqc, args.yaml,
+            args.is_acyclic, args.count_walks, args.shortest_cycle,
         ]
     )
 
@@ -378,6 +380,14 @@ def cmd_stats(args):
                         print(f"{g.path_names[p]}\t{int(per[p])}")
                 print(f"all_paths\t{total}")
 
+    if args.is_acyclic:
+        print("is_acyclic: " + ("yes" if is_acyclic(g) else "no"))
+    if args.count_walks:
+        print(f"count_walks: {count_walks(g)}")
+    if args.shortest_cycle:
+        c = shortest_cycle_length(g)
+        print(f"shortest_cycle_length: {c if c < (1 << 63) - 1 else 'none'}")
+
     if args.links_length_per_nuc:
         links_len, nucs = stats.links_length_per_nuc(g, device=dev)
         ratio = links_len / nucs if nucs else 0.0
@@ -485,7 +495,6 @@ def cmd_sort(args):
             return 1
     if pipeline:
         metrics = StepMetrics(args.metrics, "sort1d") if args.metrics else None
-        # -B / -Z (the chunks of b / z) wait with those codes
         with maybe_profile(args.profile, dev):
             g = sort_pipeline(
                 g,
@@ -495,6 +504,8 @@ def cmd_sort(args):
                 target_paths=target_paths,
                 snapshot_prefix=args.sgd_snapshot,
                 use_paths=use_paths,
+                bfs_chunk=args.breadth_first_chunk,
+                dfs_chunk=args.depth_first_chunk,
                 device=dev,
             )
         if args.sgd_layout_out:
@@ -592,6 +603,84 @@ def cmd_layout(args):
         save_layout(coords, args.out, device=dev)
     if args.tsv:
         layout_to_tsv(coords, sys.stdout if args.tsv == "-" else args.tsv)
+    return 0
+
+
+def cmd_paths(args):
+    """`odgi paths`: list, lengths, FASTA, the haplotype matrix, the
+    non-reference nodes and ranges, sequence classes, overlaps and path
+    subsets."""
+    g = load_any(args.input, args.device)
+    if args.list and args.list_path_start_end:
+        for p in range(g.num_paths):
+            print(f"{g.path_names[p]}\t1\t{int(g.path_length[p])}")
+    elif args.list:
+        for name in g.path_names:
+            print(name)
+    if args.lengths:
+        print("#path\tlength\tsteps")
+        for p in range(g.num_paths):
+            print(f"{g.path_names[p]}\t{int(g.path_length[p])}\t{int(g.path_step_count[p])}")
+    if args.fasta:
+        pc.write_fasta(g, sys.stdout, line_width=args.fasta_line_width)
+    if args.haplotypes:
+        pc.write_haplotype_matrix(g, sys.stdout, scale_by_length=args.scale_by_node_length,
+                                  group_delim=args.delim)
+
+    def load_names(fname):
+        out = []
+        with open(fname) as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    if line not in g.path_names:
+                        print(f"[odgi::paths] error: path'{line}' does not exist in graph.",
+                              file=sys.stderr)
+                        sys.exit(1)
+                    out.append(g.path_names.index(line))
+        return out
+
+    if args.non_reference_nodes:
+        refs = load_names(args.non_reference_nodes)
+        print("#node.id\tnode.len\tnum.uncalled.bases\tpaths")
+        for row in pc.non_reference_nodes_rows(g, refs, args.min_size):
+            print("\t".join(str(v) for v in row))
+    elif args.non_reference_ranges:
+        refs = load_names(args.non_reference_ranges)
+        print("#path.name\tstart\tend" + ("\tsteps" if args.show_step_ranges else ""))
+        for row in pc.non_reference_ranges_rows(g, refs, args.min_size, args.show_step_ranges):
+            print("\t".join(str(v) for v in row))
+
+    if args.coverage_levels or args.fraction_levels:
+        levels = [float(v) for v in (args.coverage_levels or args.fraction_levels).split(",")]
+        hdr, rows = pc.sequence_class_tables(
+            g, levels, bool(args.fraction_levels), delim=args.delim,
+            delim_pos=max(args.delim_pos - 1, 0), min_size=args.min_size,
+            path_ranges=args.path_range_class, show_steps=args.show_step_ranges,
+        )
+        print(hdr)
+        for row in rows:
+            print("\t".join(str(v) for v in row))
+
+    if args.overlaps:
+        groups = {}
+        with open(args.overlaps) as f:
+            for line in f:
+                line = line.rstrip("\n")
+                if line:
+                    vals = line.split("\t")
+                    groups.setdefault(vals[0], []).append(vals[1] if len(vals) > 1 else vals[0])
+        print("group.name\tquery\ttarget\toverlap\toverlap.frac")
+        for row in pc.overlaps_table(g, sorted(groups.items())):
+            print(f"{row[0]}\t{row[1]}\t{row[2]}\t{row[3]}\t{row[4]:.6g}")
+
+    if args.keep_paths or args.drop_paths:
+        keep = load_names(args.keep_paths) if args.keep_paths else list(range(g.num_paths))
+        if args.drop_paths:
+            drop = set(load_names(args.drop_paths))
+            keep = [p for p in keep if p not in drop]
+        if args.out:
+            _out_graph(g.keep_paths(keep), args.out)
     return 0
 
 
@@ -775,6 +864,33 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler trace of the optimization")
     p.set_defaults(fn=cmd_layout)
 
+    p = sub.add_parser("paths", help="path information")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--out", default=None)
+    p.add_argument("-L", "--list", "--list-paths", action="store_true")
+    p.add_argument("-e", "--list-path-start-end", action="store_true")
+    p.add_argument("-l", "--lengths", action="store_true")
+    p.add_argument("-f", "--fasta", action="store_true")
+    p.add_argument("-w", "--fasta-line-width", type=int, default=0)
+    p.add_argument("-H", "--haplotypes", action="store_true")
+    p.add_argument("-D", "--delim", default=None)
+    p.add_argument("-p", "--delim-pos", type=int, default=1)
+    p.add_argument("-N", "--scale-by-node-length", "-s",
+                   dest="scale_by_node_length", action="store_true")
+    p.add_argument("--non-reference-nodes", default=None)
+    p.add_argument("--non-reference-ranges", default=None)
+    p.add_argument("--coverage-levels", default=None)
+    p.add_argument("--fraction-levels", default=None)
+    p.add_argument("--path-range-class", action="store_true")
+    p.add_argument("--min-size", type=int, default=0)
+    p.add_argument("--show-step-ranges", action="store_true")
+    p.add_argument("-O", "--overlaps", default=None)
+    p.add_argument("-K", "--keep-paths", default=None)
+    p.add_argument("-X", "--drop-paths", default=None)
+    p.add_argument("-t", "--threads", type=int, default=1)
+    p.add_argument("-P", "--progress", action="store_true")
+    p.set_defaults(fn=cmd_paths)
+
     p = sub.add_parser("version", help="print the version")
     p.add_argument("-v", "--version", action="store_true")
     p.add_argument("-c", "--codename", action="store_true")
@@ -790,9 +906,6 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     args.device = resolve_device(device)
     try:
         return args.fn(args)
-    except NotImplementedError as exc:
-        print(f"[odgi_tpu_torch::{args.command}] error: {exc}", file=sys.stderr)
-        return 1
     except BrokenPipeError:
         # downstream closed (e.g. | head); exit quietly like a unix tool
         os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())

@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from .scatter import factored_scatter_add, mean_apply
 from .sgd import sgd_schedule
 from .zipf import zeta_eta_table, zeta_index, zeta_table, zipf_sample
 
@@ -134,7 +135,15 @@ def sample_pairs(words: torch.Tensor, start: int, data: SgdData, cfg, cooling: b
     if B > width:
         raise ValueError(f"batch of {B} pairs over a step table of {width // 2} steps")
     start = max(0, min(int(start), width - B))  # dynamic_slice's clamp
-    cols_a = data.tab_a[:, start:start + B]
+    return pairs_from_cols(data.tab_a[:, start:start + B], words, data, cfg, cooling)
+
+
+def pairs_from_cols(cols_a: torch.Tensor, words: torch.Tensor, data: SgdData, cfg,
+                    cooling: bool):
+    """The pairs of the first steps `cols_a` (8, ...) (columns of tab_a)
+    and the words (2, ...) of the same lane shape; `sample_pairs` after
+    its slice.  Every operation is lane-wise, so the lanes may have any
+    shape (the sharded sampler's (devices, B))."""
     lo, s_rank, count = cols_a[A_LO], cols_a[A_RANK], cols_a[A_COUNT]
     valid = count > 1
 
@@ -149,46 +158,13 @@ def sample_pairs(words: torch.Tensor, start: int, data: SgdData, cfg, cooling: b
                              min=1, max=int(cfg.space))
     ze = data.zeta_eta[zeta_index(jump_space, cfg.space_max,
                                   cfg.space_quantization_step).to(torch.int64)]
-    zi = zipf_sample(u, jump_space, cfg.theta, ze[:, 0], ze[:, 1])
+    zi = zipf_sample(u, jump_space, cfg.theta, ze[..., 0], ze[..., 1])
     s2_zipf = torch.where(backward, s_rank - zi, s_rank + zi)
     s2_unif = torch.floor(_u24(w1) * count.to(torch.float32)).to(torch.int32)
     s2 = torch.where(coin_zipf | bool(cooling), s2_zipf, s2_unif)
     s2 = torch.minimum(torch.clamp_min(s2, 0), count - 1)
     step_b = lo + s2
     return Pairs(cols_a, data.tab_b[step_b.to(torch.int64)], valid, w1), step_b
-
-
-def _mean_merge(x: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor,
-                valid: torch.Tensor) -> torch.Tensor:
-    """x + the mean of the updates `upd` (rows, one a lane of `idx`) each
-    row of x received; the counts are the valid lanes."""
-    cols = upd.reshape(upd.shape[0], -1)
-    src = torch.cat([cols, valid.to(x.dtype)[:, None]], dim=1)
-    acc = torch.zeros((x.shape[0], src.shape[1]), dtype=x.dtype, device=x.device)
-    acc.index_add_(0, idx.to(torch.int64), src)
-    mean = acc[:, :-1] / torch.clamp_min(acc[:, -1:], 1.0)
-    return x + mean.reshape(x.shape)
-
-
-def update_1d(X: torch.Tensor, pairs: Pairs, eta: torch.Tensor, pin=None):
-    """One 1D batch (the reference's `_update_1d`, scatter form): returns
-    the new f32 positions and the batch's max |delta| over valid pairs.
-    Pinned nodes keep their old value."""
-    cols_a, rows_b, valid, _ = pairs
-    i = cols_a[A_HANDLE] >> 1
-    j = rows_b[:, B_HANDLE] >> 1
-    term = (cols_a[A_POS] - rows_b[:, B_POS]).abs().to(torch.float32)
-    valid = valid & (term != 0)
-    mu = torch.clamp_max(eta * (1.0 / torch.clamp_min(term, 1e-30)), 1.0)
-    dx = X[i.to(torch.int64)] - X[j.to(torch.int64)]
-    dx = torch.where(dx == 0.0, 1e-9, dx)
-    mag = dx.abs()
-    delta = mu * (mag - term) / 2.0
-    r = torch.where(valid, delta / mag * dx, 0.0)
-    Xn = _mean_merge(X, torch.cat([i, j]), torch.cat([-r, r]), torch.cat([valid, valid]))
-    if pin is not None:
-        Xn = torch.where(pin, X, Xn)
-    return Xn, torch.where(valid, delta.abs(), 0.0).max()
 
 
 def endpoints_2d(coin: torch.Tensor, handle: torch.Tensor, pos0: torch.Tensor,
@@ -203,27 +179,73 @@ def endpoints_2d(coin: torch.Tensor, handle: torch.Tensor, pos0: torch.Tensor,
     return 2 * (handle >> 1) + use_other.to(torch.int32), pos
 
 
-def update_2d(coords: torch.Tensor, pairs: Pairs, eta: torch.Tensor, pin_ep=None):
-    """One 2D batch (the reference's `_update_2d`, scatter form) on the
-    (2N, 2) f32 coordinates; returns them and the batch's max |delta|.
-    Pinned endpoints keep their old value."""
+def pair_acc_1d(table: torch.Tensor, pairs: Pairs, eta, base=0):
+    """The 1D pair updates of `pairs` (lanes of any shape) against the
+    positions `table` (rows, 1), summed into the (rows, 2) [dx, count]
+    accumulator; each lane's nodes are offset by `base` (the sharded
+    sampler's replica times its rows).  Returns (acc, delta, valid), the
+    last two flat over the lanes.  The counts are the valid pairs: a path
+    of one step or a pair at distance 0 moves nothing."""
+    cols_a, rows_b, valid, _ = pairs
+    i = ((cols_a[A_HANDLE] >> 1).to(torch.int64) + base).reshape(-1)
+    j = ((rows_b[..., B_HANDLE] >> 1).to(torch.int64) + base).reshape(-1)
+    term = (cols_a[A_POS] - rows_b[..., B_POS]).abs().to(torch.float32).reshape(-1)
+    valid = valid.reshape(-1) & (term != 0)
+    mu = torch.clamp_max(eta * (1.0 / torch.clamp_min(term, 1e-30)), 1.0)
+    dx = table[i, 0] - table[j, 0]
+    dx = torch.where(dx == 0.0, 1e-9, dx)
+    mag = dx.abs()
+    delta = mu * (mag - term) / 2.0
+    r = torch.where(valid, delta / mag * dx, 0.0)
+    v = valid.to(torch.float32)
+    upd = torch.stack([torch.cat([-r, r]), torch.cat([v, v])], dim=1)
+    return factored_scatter_add(table.shape[0], torch.cat([i, j]), upd), delta, valid
+
+
+def pair_acc_2d(table: torch.Tensor, pairs: Pairs, eta, base=0):
+    """The 2D pair updates against the endpoint coordinates `table`
+    (rows, 2), summed into the (rows, 3) [dx, dy, count] accumulator; as
+    `pair_acc_1d`.  The term distance has a 1e-9 floor."""
     cols_a, rows_b, valid, w1 = pairs
     ep_a, pos_a = endpoints_2d((w1 & 1) != 0, cols_a[A_HANDLE], cols_a[A_POS],
                                cols_a[A_POSEND])
-    ep_b, pos_b = endpoints_2d((w1 & 2) != 0, rows_b[:, B_HANDLE], rows_b[:, B_POS],
-                               rows_b[:, B_POSEND])
-    term = torch.clamp_min((pos_a - pos_b).abs().to(torch.float32), 1e-9)
+    ep_b, pos_b = endpoints_2d((w1 & 2) != 0, rows_b[..., B_HANDLE], rows_b[..., B_POS],
+                               rows_b[..., B_POSEND])
+    ia = (ep_a.to(torch.int64) + base).reshape(-1)
+    ib = (ep_b.to(torch.int64) + base).reshape(-1)
+    term = torch.clamp_min((pos_a - pos_b).abs().to(torch.float32), 1e-9).reshape(-1)
     mu = torch.clamp_max(eta / term, 1.0)
-    d = coords[ep_a.to(torch.int64)] - coords[ep_b.to(torch.int64)]
+    d = table[ia] - table[ib]
     dx = torch.where(d[:, 0] == 0.0, 1e-9, d[:, 0])
     dy = d[:, 1]
     # the correctly rounded f32 root (see strata_sgd._chunk_2d)
     mag = torch.sqrt((dx * dx + dy * dy).to(torch.float64)).to(torch.float32)
     delta = mu * (mag - term) / 2.0
+    valid = valid.reshape(-1)
     r = torch.where(valid, delta / mag, 0.0)
-    upd = torch.stack([r * dx, r * dy], dim=1)
-    out = _mean_merge(coords, torch.cat([ep_a, ep_b]), torch.cat([-upd, upd]),
-                      torch.cat([valid, valid]))
+    v = valid.to(torch.float32)
+    upd = torch.cat([torch.stack([-r * dx, -r * dy, v], dim=1),
+                     torch.stack([r * dx, r * dy, v], dim=1)])
+    return factored_scatter_add(table.shape[0], torch.cat([ia, ib]), upd), delta, valid
+
+
+def update_1d(X: torch.Tensor, pairs: Pairs, eta: torch.Tensor, pin=None):
+    """One 1D batch (the reference's `_update_1d`, scatter form): returns
+    the new f32 positions and the batch's max |delta| over valid pairs.
+    Pinned nodes keep their old value."""
+    acc, delta, valid = pair_acc_1d(X[:, None], pairs, eta)
+    Xn = mean_apply(X[:, None], acc)[:, 0]
+    if pin is not None:
+        Xn = torch.where(pin, X, Xn)
+    return Xn, torch.where(valid, delta.abs(), 0.0).max()
+
+
+def update_2d(coords: torch.Tensor, pairs: Pairs, eta: torch.Tensor, pin_ep=None):
+    """One 2D batch (the reference's `_update_2d`, scatter form) on the
+    (2N, 2) f32 coordinates; returns them and the batch's max |delta|.
+    Pinned endpoints keep their old value."""
+    acc, delta, valid = pair_acc_2d(coords, pairs, eta)
+    out = mean_apply(coords, acc)
     if pin_ep is not None:
         out = torch.where(pin_ep[:, None], coords, out)
     return out, torch.where(valid, delta.abs(), 0.0).max()

@@ -7,8 +7,7 @@ the TPU's MXU).  ``path_sgd_1d`` and ``path_sgd_2d`` route a run as the
 reference does: the strata scheme of ``ops/strata_sgd.py`` on the route
 ``ops/strata_route.py`` picks (resident, XL or XXL kernels), or the
 batched path of ``ops/batched_sgd.py`` for small graphs, pinning,
-snapshots and delta early stop past the resident route.  ``not_ported``
-names the ROADMAP item of a part that is still to come.
+snapshots and delta early stop past the resident route.
 """
 
 from __future__ import annotations
@@ -23,13 +22,6 @@ import torch
 
 from ..core.graph import GraphTensors
 from ..device import resolve_device
-
-
-def not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to odgi_tpu_torch yet (ROADMAP.md queue 1 "
-        f"item {item})"
-    )
 
 
 def sgd_schedule(

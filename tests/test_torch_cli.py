@@ -40,7 +40,6 @@ from odgi_tpu_torch.ops.sgd import derive_config_2d
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAYOUT_TOL = 1e-4  # tests/test_torch_pipeline.py's bar against the twin layout
-NOT_PORTED = "is not ported to odgi_tpu_torch yet (ROADMAP.md queue 1 item {})"
 
 # Integer names out of order, a reversing join, a self-loop and W lines.
 GFA_INT = """H\tVN:Z:1.0
@@ -218,6 +217,8 @@ STATS_FLAGS = [
     ["-p", "-l", "-g", "-c", "LAY"], ["-y"], ["-y", "-W", "-L", "-b", "-l", "-g", "-s", "-d",
                                               "-w", "-j", "-q", "-a", "#,0", "-N", "-p"],
     ["-y", "-s", "-l", "-c", "LAY"], ["-m"], ["-m", "-c", "LAY"],
+    ["--is-acyclic"], ["--count-walks"], ["--shortest-cycle"],
+    ["-S", "--is-acyclic", "--count-walks", "--shortest-cycle"], ["-y", "--is-acyclic", "-W"],
 ]
 
 
@@ -234,6 +235,9 @@ SORT_FLAGS = [
     ["-p", "s"], ["-p", "gs"], ["-p", "g"], [], ["-O"], ["-s", "ORDER"], ["-L"], ["-M"], ["-A"],
     ["-R"], ["-L", "-D", "#"], ["-M", "-D", "#"], ["-A", "-D", "#"], ["-R", "-D", "#"],
     ["-p", "gs", "-A", "-D", "#"], ["-p", "s", "-e", "{o}_1d.lay"], ["-p", "gs", "-t", "4", "-P"],
+    ["-b"], ["-z"], ["-r"], ["-n"], ["-w"], ["-c"], ["-d"], ["-b", "-B", "5"], ["-z", "-Z", "3"],
+    *[["-p", c] for c in "nfrbzwcdel"], ["-p", "gsbw"], ["-p", "nfrbzwcdel"],
+    ["-w", "-b"], ["-d", "-c", "-n"], ["-r", "-O", "-M"], ["-p", "ecl", "-e", "{o}_1d.lay"],
 ]
 
 
@@ -260,8 +264,98 @@ def test_sort_unknown_path_name(inputs):
         assert rc == 1 and "not_a_path not found" in err
 
 
+def test_sort_snapshots_equal_odgi_tpu(inputs, monkeypatch):
+    """sort -u through both command lines, each package's 1D PG-SGD
+    replaced by one that feeds the snapshot callback the same positions:
+    the same .og bytes an iteration and the same result."""
+    from odgi_tpu.algorithms import path_sgd_sort as j_pss
+    from odgi_tpu_torch.algorithms import path_sgd_sort as t_pss
+
+    def positions(g):
+        rng = np.random.default_rng(3)
+        return [g.node_offset + rng.normal(0, 20, g.num_nodes) for _ in range(3)]
+
+    def fake(g, cfg=None, use_paths=None, pin_nodes=None, snapshot_cb=None, **kw):
+        xs = positions(g)
+        for it, x in enumerate(xs):
+            snapshot_cb(it, x)
+        return torch.as_tensor(xs[-1]) if "device" in kw else xs[-1]
+
+    monkeypatch.setattr(j_pss, "path_sgd_1d", fake)
+    monkeypatch.setattr(t_pss, "path_sgd_1d", fake)
+    p = inputs["walk"]
+    outputs = ["{o}_u.og"] + [f"{{o}}_snap{i}" for i in (1, 2, 3)]
+    assert run_both(p["dir"], ["sort", "-i", p["og"], "-o", "{o}_u.og", "-p", "Ygs", "-u",
+                               "{o}_snap"], outputs=outputs)[0] == 0
+    assert not os.path.exists(os.path.join(p["dir"], "t_snap4"))
+
+
+@pytest.fixture(scope="module")
+def path_files(inputs):
+    """name -> files of path names for `paths`: REFS (the first path),
+    REFS2 (the second), GROUPS (an overlap grouping) and BAD (a name not in
+    the graph)."""
+    out = {}
+    for name in GRAPHS:
+        p = inputs[name]
+        names = ot.parse_gfa(p["gfa"], device="cpu").path_names
+        files = {}
+        for key, text in (("REFS", f"{names[0]}\n"), ("REFS2", f"\n{names[1]}\n"),
+                          ("GROUPS", f"g1\t{names[0]}\ng1\t{names[1]}\ng2\t{names[-1]}\n"
+                                     f"g2\t{names[0]}\n{names[1]}\n"),
+                          ("BAD", f"{names[0]}\nno_such_path\n")):
+            files[key] = os.path.join(p["dir"], f"{name}_{key}.txt")
+            with open(files[key], "w") as f:
+                f.write(text)
+        out[name] = files
+    return out
+
+
+PATHS_FLAGS = [
+    ["-L"], ["-L", "-e"], ["-e"], ["-l"], ["-f"], ["-f", "-w", "3"], ["-H"], ["-H", "-D", "#"],
+    ["-H", "-N"], ["-H", "-s", "-D", "#", "-p", "2"], ["-L", "-l", "-f", "-H"],
+    ["--non-reference-nodes", "REFS"], ["--non-reference-nodes", "REFS", "--min-size", "2"],
+    ["--non-reference-ranges", "REFS"],
+    ["--non-reference-ranges", "REFS2", "--show-step-ranges", "--min-size", "2"],
+    ["--coverage-levels", "1,2"], ["--coverage-levels", "3,1,2", "--min-size", "2"],
+    ["--fraction-levels", "0.5,1", "-D", "#", "-p", "2"],
+    ["--coverage-levels", "1,2", "--path-range-class", "--show-step-ranges"],
+    ["--fraction-levels", "0.3,0.6", "--path-range-class", "-D", "#"],
+    ["-O", "GROUPS"], ["-K", "REFS", "-o", "{o}_kept.og"], ["-X", "REFS", "-o", "{o}_drop.gfa"],
+    ["-K", "REFS2", "-X", "REFS", "-o", "{o}_both.otg"], ["-K", "REFS"], ["-t", "2", "-P", "-l"],
+]
+
+
+@pytest.mark.parametrize("flags", PATHS_FLAGS,
+                         ids=lambda f: "_".join(f).replace("-", "").replace("{o}_", "") or "none")
+@pytest.mark.parametrize("name", GRAPHS)
+def test_paths(inputs, path_files, name, flags):
+    p = inputs[name]
+    argv = ["paths", "-i", p["og"]] + [path_files[name].get(f, f) for f in flags]
+    rc, _, _ = run_both(p["dir"], argv, outputs=[f for f in flags if "{o}" in f])
+    assert rc == 0
+
+
+@pytest.mark.parametrize("flags", [["--non-reference-nodes", "BAD"], ["-K", "BAD"],
+                                   ["-H", "-D", "@"]], ids=["nodes", "keep", "delim"])
+def test_paths_errors_equal_odgi_tpu(inputs, path_files, flags):
+    """A name not in the graph, or a delimiter a path name lacks: both exit
+    through SystemExit with the same code and stderr."""
+    p = inputs["walk"]
+    argv = ["paths", "-i", p["og"]] + [path_files["walk"].get(f, f) for f in flags]
+    if flags[0] == "-H":
+        argv = ["paths", "-i", p["og"], "--coverage-levels", "1", "-D", "@"]
+    res = {}
+    for tag, main, kw in (("j", j_cli.main, {}), ("t", t_cli.main, {"device": "cpu"})):
+        with pytest.raises(SystemExit) as exc:
+            run(main, argv, **kw)
+        res[tag] = exc.value.code
+    assert res["t"] == res["j"] and res["t"] not in (0, None)
+
+
 def test_flag_surface_equals_odgi_tpu():
-    """Every ported subcommand takes odgi_tpu's flags, flag for flag."""
+    """Every ported subcommand takes odgi_tpu's flags, flag for flag; the
+    port has every subcommand odgi_tpu/cli/main.py registers itself."""
 
     def surface(parser):
         sub = next(a for a in parser._actions if a.dest == "command")
@@ -272,7 +366,8 @@ def test_flag_surface_equals_odgi_tpu():
         }
 
     ours, theirs = surface(t_cli.build_parser()), surface(j_cli.build_parser())
-    assert sorted(ours) == ["build", "layout", "sort", "stats", "validate", "version", "view"]
+    assert sorted(ours) == ["build", "layout", "paths", "sort", "stats", "validate", "version",
+                            "view"]
     for name in ours:
         assert ours[name] == theirs[name], name
 
@@ -462,29 +557,8 @@ def test_profile_writes_a_trace(shuffled, cli_sorted, cmd):
 
 
 # ---------------------------------------------------------------------------
-# What is not ported yet, and the device
+# The version and the device
 # ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("flags,item", [
-    *[([f], 13) for f in ("-b", "-z", "-r", "-n", "-w", "-c", "-d")],
-    *[(["-p", c], 13) for c in "frbzwcdeln"],
-    (["-p", "Ygs", "-u", "snap"], 13),
-])
-def test_sort_unported_codes(inputs, flags, item):
-    p = inputs["walk"]
-    rc, out, err = run(t_cli.main, ["sort", "-i", p["og"], "-o",
-                                    os.path.join(p["dir"], "unported.og"), *flags], device="cpu")
-    assert (rc, out) == (1, "")
-    assert err.startswith("[odgi_tpu_torch::sort] error: ") and NOT_PORTED.format(item) in err
-
-
-@pytest.mark.parametrize("flag", ["--is-acyclic", "--count-walks", "--shortest-cycle"])
-def test_stats_unported_flags(inputs, flag):
-    rc, out, err = run(t_cli.main, ["stats", "-i", inputs["int"]["og"], "-S", flag],
-                       device="cpu")
-    assert (rc, out) == (1, "")
-    assert flag in err and NOT_PORTED.format(12) in err
 
 
 def test_version():

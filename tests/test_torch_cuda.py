@@ -19,9 +19,12 @@ simulation exactly.  The leveled kernels' tracking instances (delta early
 stop) give the untracked drift exactly and the plain versions' Delta_max
 exactly, and tracked runs on the card stop where the CPU's stop; a batched
 step on the card lies within 1e-6 of the scale of the same words' step on
-the CPU (index_add_ adds by atomics there).  The command line on the card
-(build -> sort -p Ygs -> layout -> stats) writes the Python API's bytes,
-and the stats functions that do their array work on the caller's device
+the CPU (index_add_ adds by atomics there), and so do the multi-device
+sampler's accumulators, a round of its "batch" consensus, and a one-rank
+NCCL run of it against its one-device simulation.  The command line on the
+card (build -> sort -p Ygs -> layout -> stats) writes the Python API's
+bytes, every other sort code, the graph walks of stats and paths give the
+CPU's bytes there, and the stats functions that do their array work on the caller's device
 give the CPU's answer on the card: integers exact, floats within 1e-12
 relative.
 """
@@ -731,6 +734,104 @@ def test_batched_pinned_run_on_card(cuda, graph):
     assert np.array_equal(X[pin], x0[pin]) and not np.array_equal(X[~pin], x0[~pin])
     nt = lambda h: sum_of_path_node_distances(h, device="cpu").all_nt_space
     assert nt(g.apply_ordering(order)) < nt(g)
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+def test_sampler_on_card_matches_cpu(cuda, graph, one_d):
+    """The multi-device sampler on the card: one device's local accumulator
+    against the CPU's on the same words, and one round of "batch"
+    consensus at 4 devices against the same round on the CPU, each within
+    1e-6 of the scale (index_add_ adds by atomics on the card)."""
+    from odgi_tpu_torch.ops import batched_sgd as bs
+    from odgi_tpu_torch.parallel import sharded
+
+    cfg = (sgd.derive_config_1d if one_d else sgd.derive_config_2d)(graph, iter_max=1,
+                                                                    batch_size=512)
+    words = [bs.draw_words(torch.Generator().manual_seed(d), cfg.batch_size, "cpu")
+             for d in range(4)]
+    x0 = (graph.node_offset if one_d else init_layout(graph)).astype(np.float32)
+    eta = np.float32(25.0)
+    acc_fn = sharded.local_acc_1d if one_d else sharded.local_acc_2d
+    make = sharded.make_sharded_sgd_1d if one_d else sharded.make_sharded_sgd_2d
+    out = {}
+    for dev in ("cpu", cuda):
+        data = bs.SgdData.build(graph, cfg.theta, cfg.space, cfg.space_max,
+                                cfg.space_quantization_step, device=dev)
+        x = torch.as_tensor(x0, device=dev)
+        acc = acc_fn(x, words[1].to(dev), 33, data, cfg, torch.tensor(eta, device=dev), False)
+        run = make(cfg, 1, n_dev=4, consensus="batch")(
+            x, torch.tensor([eta], device=dev), data, lambda it, b, d: words[d])
+        out[str(dev)] = (acc.cpu(), run.cpu())
+    (a_c, r_c), (a_k, r_k) = out["cpu"], out[str(cuda)]
+    assert torch.equal(a_k[:, -1], a_c[:, -1])
+    assert float((a_k - a_c).abs().max()) <= 1e-6 * float(a_c[:, :-1].abs().max())
+    assert float((r_k - r_c).abs().max()) <= 1e-6 * float(r_c.abs().max())
+
+
+def test_sampler_one_rank_nccl_matches_simulation(cuda, graph):
+    """One device simulated and the same run in a one-rank NCCL group
+    (two rounds of one iteration, 2D) within 1e-6 of the scale; the
+    4-device layout on the card at most 5% above the single-device batched
+    layout's stress (this graph's init is near its optimum, so both end
+    above their start at 10 iterations)."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from odgi_tpu_torch.algorithms.stats import sum_of_path_node_distances
+    from odgi_tpu_torch.ops import batched_sgd as bs
+    from odgi_tpu_torch.parallel import sharded
+
+    cfg = sgd.derive_config_2d(graph, iter_max=1)
+    x0 = init_layout(graph)
+    run = lambda: sharded.sharded_positions(graph, x0, cfg, False, device=cuda, num_batches=2)
+    sim = run()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        nccl = run()
+    finally:
+        dist.destroy_process_group()
+    assert float((nccl - sim).abs().max()) <= 1e-6 * float(sim.abs().max())
+    cfg10 = sgd.derive_config_2d(graph, iter_max=10)
+    c = sharded.sharded_layout(graph, cfg10, n_dev=4)
+    one = bs.path_sgd_2d_batched(graph, x0, cfg10, device=cuda)["x"].cpu().numpy()
+    stress = lambda xy: sum_of_path_node_distances(
+        graph, (xy[:, 0], xy[:, 1]), device="cpu").all_2d_by_nucleotides
+    assert np.isfinite(c).all() and stress(c) <= 1.05 * stress(one)
+
+
+def test_cli_sort_codes_and_paths_on_card_equal_cpu(cuda, graph, tmp_path):
+    """Every sort code in one chain, stats --is-acyclic / --count-walks /
+    --shortest-cycle and paths -L -l -H through the command line on the
+    card (device None) give the CPU's bytes and printouts."""
+    import contextlib
+    import io
+
+    from odgi_tpu_torch.cli.main import main
+    from odgi_tpu_torch.io import og
+
+    d = str(tmp_path)
+    og.save_graph(graph.apply_ordering(np.random.default_rng(3).permutation(graph.num_nodes)),
+                  f"{d}/g.otg")
+
+    def cli(argv, device):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert main(argv, device=device) == 0
+        return out.getvalue()
+
+    for dev, tag in ((None, "card"), ("cpu", "cpu")):
+        cli(["sort", "-i", f"{d}/g.otg", "-o", f"{d}/{tag}.og", "-p", "nfrbzwcdel"], dev)
+    with open(f"{d}/card.og", "rb") as a, open(f"{d}/cpu.og", "rb") as b:
+        assert a.read() == b.read()
+    for argv in (["stats", "-i", f"{d}/g.otg", "--is-acyclic", "--count-walks",
+                  "--shortest-cycle"], ["paths", "-i", f"{d}/g.otg", "-L", "-l", "-H"]):
+        assert cli(argv, None) == cli(argv, "cpu")
 
 
 def test_cli_chain_on_card_equals_api(cuda, graph, tmp_path):

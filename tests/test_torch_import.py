@@ -60,3 +60,17 @@ def test_parallel_imports_neither_jax_nor_odgi_tpu():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_sampler_rank_imports_neither_jax_nor_odgi_tpu():
+    """The same for the batched sampler's worker (parallel/sharded.py)."""
+    code = (
+        "import sys\n"
+        "from odgi_tpu_torch.parallel.sharded import run_rank\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'odgi_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

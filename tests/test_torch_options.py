@@ -234,9 +234,3 @@ def test_layout_to_tsv_equals_reference(graphs):
     j_layout.layout_to_tsv(coords, a)
     layout.layout_to_tsv(coords, b)
     assert a.getvalue() == b.getvalue()
-
-
-def test_sort_snapshot_prefix_is_not_ported(graphs):
-    _, gt = graphs
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ot.sort_pipeline(gt, "Y", snapshot_prefix="snap", device="cpu")

@@ -77,9 +77,3 @@ def test_layout_matches_twin(sorted_pair):
     sj = j_stats.sum_of_path_node_distances(gj2, (twin[:, 0], twin[:, 1]))
     st = ot.sum_of_path_node_distances(gt2, (port[:, 0], port[:, 1]), device="cpu")
     assert st.all_2d_by_nucleotides == pytest.approx(sj.all_2d_by_nucleotides, rel=1e-3)
-
-
-def test_other_sort_codes_are_not_ported(shuffled):
-    _, gt = shuffled
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ot.sort_pipeline(gt, "Ygr", device="cpu")
