@@ -108,6 +108,22 @@ Phases, each printing one line or more:
      a node in Python; a Dijkstra from every node), past the 60 s these
      phases allow a command.  Then sort -Y -u on the 1,000-step graph:
      100 .og snapshots, the last equal to the result.
+ 11. the pictures and the edits (odgi_tpu_torch.cli.main, device None),
+     after phase 10, on phase 4c's smoke .otg as generated and a .lay of
+     its init_layout coordinates: depth, degree, viz in each colour mode,
+     draw -p -s (and -C path -b), unchop, normalize, flip, prune, explode,
+     squeeze, flatten, groom, crush, break, unitig, inject, cover, priv,
+     procbed, and unchop then chop -c 4 on a graph of multi-base nodes
+     and bubbles (bubble_graph; unchop merges nothing on the smoke graph),
+     each command's wall: every printout and written file equal to the
+     same command's on the CPU in this run and to odgi_tpu's on Pillow
+     12.1.0 (RENDER_DIGESTS, from tools/render_digests.py; a PNG by its
+     pixels, as the card's zlib may differ); the viz and draw PNGs decode
+     to the arrays the API renders; viz and draw of phase 4c's sorted
+     graph and layout, card against CPU; no kernel launches.  And after
+     phase 7, render_viz of the 1M-node graph after Ygs and draw_png of
+     its layout through the API, each timed, each PNG decoding to the
+     array rendered.
 Every path runs with the launch counts set to 0 just before it and read
 just after; every SPIN_EVERY-th launch of a kernel on it is queued behind a
 spin kernel, so that its time holds the kernel alone; each prints the
@@ -126,6 +142,8 @@ import contextlib
 import dataclasses
 import datetime
 import glob
+import hashlib
+import importlib.util
 import io
 import json
 import os
@@ -135,17 +153,19 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
 
 import odgi_tpu_torch as ot
 from odgi_tpu_torch import native
-from odgi_tpu_torch.algorithms import groom, layout, path_sgd_sort, topological
+from odgi_tpu_torch.algorithms import draw, groom, layout, path_sgd_sort, topological, viz
 from odgi_tpu_torch.cli import main as cli_main
 from odgi_tpu_torch.convert import FIELDS
 from odgi_tpu_torch.io import gfa as gfa_io
 from odgi_tpu_torch.io import og as og_io
+from odgi_tpu_torch.io import png
 from odgi_tpu_torch.ops import (batched_sgd, kernels, sgd, strata_levels, strata_plan,
                                 strata_route, strata_sgd, strata_xl, strata_xxl)
 from odgi_tpu_torch.ops.sgd import derive_config_1d, derive_config_2d
@@ -219,6 +239,99 @@ FULL_GROUPS = 2  # groups of a full plan run on the leveled and the chain kernel
 STOP_MARGIN = 1e-3  # an interior delta stop lies this far (relative) below every earlier one
 SNAPSHOTS = 30      # -u: one .lay an iteration of the default 2D schedule
 SMALL = (1_000, 200, 250)  # steps, nodes, steps a path: under 1,024 steps, the batched path
+# Phase 11: the pictures and the edits, on phase 4c's smoke .otg ("{g}") as
+# generated and its init_layout coordinates ("{lay}"); "{d}" is the run's
+# output directory, "{small}" the 1,000-step graph, "{bub}" bubble_graph's
+# GFA (unchop merges nothing on the smoke graph), "{bed}" / "{tgt}" the
+# side files of render_side_files.  (key, command, files it writes)
+RENDER_CMDS = (
+    ("depth_d", "depth -i {g} -d", ()),
+    ("depth_ranges", "depth -i {g}", ()),
+    ("depth_windows", "depth -i {g} -w 100:0:5:0", ()),
+    ("degree_S", "degree -i {g} -S", ()),
+    ("degree_d", "degree -i {g} -d --in-out-degree", ()),
+    ("viz_path", "viz -i {g} -o {d}/viz_path.png", ("viz_path.png",)),
+    ("viz_strand", "viz -i {g} --color-by strand -o {d}/viz_strand.png", ("viz_strand.png",)),
+    ("viz_depth", "viz -i {g} -m -o {d}/viz_depth.png", ("viz_depth.png",)),
+    ("viz_brewer", "viz -i {g} -m -B Spectral:7 -o {d}/viz_brewer.png", ("viz_brewer.png",)),
+    ("viz_gray", "viz -i {g} --color-by gray -o {d}/viz_gray.png", ("viz_gray.png",)),
+    ("viz_inversion", "viz -i {g} -z -o {d}/viz_inversion.png", ("viz_inversion.png",)),
+    ("viz_uncalled", "viz -i {g} -N -o {d}/viz_uncalled.png", ("viz_uncalled.png",)),
+    ("viz_prefix", "viz -i {g} -s # -R -o {d}/viz_prefix.png", ("viz_prefix.png",)),
+    ("viz_darkness", "viz -i {g} -d -C -b -o {d}/viz_darkness.png", ("viz_darkness.png",)),
+    ("draw", "draw -i {g} -c {lay} -p {d}/draw.png -s {d}/draw.svg", ("draw.png", "draw.svg")),
+    ("draw_path", "draw -i {g} -c {lay} -p {d}/draw_path.png -C path -s {d}/draw_bed.svg "
+                  "-b {bed}", ("draw_path.png", "draw_bed.svg")),
+    ("unchop", "unchop -i {g} -o {d}/unchop.gfa", ("unchop.gfa",)),
+    ("unchop_bubbles", "unchop -i {bub} -o {d}/unchop_bubbles.gfa", ("unchop_bubbles.gfa",)),
+    ("chop", "chop -i {d}/unchop_bubbles.gfa -c 4 -o {d}/chop.gfa", ("chop.gfa",)),
+    ("normalize", "normalize -i {g} -o {d}/normalize.gfa", ("normalize.gfa",)),
+    ("flip", "flip -i {g} -o {d}/flip.gfa", ("flip.gfa",)),
+    ("prune", "prune -i {g} -d 14 -T -o {d}/prune.gfa", ("prune.gfa",)),
+    ("explode", "explode -i {g} -p {d}/explode.", ("explode.0.otg",)),
+    ("squeeze", "squeeze -f {g} {small} -o {d}/squeeze.gfa", ("squeeze.gfa",)),
+    ("flatten", "flatten -i {g} -n smoke -f {d}/flatten.fa -b {d}/flatten.bed",
+     ("flatten.fa", "flatten.bed")),
+    ("groom", "groom -i {g} -R {tgt} -o {d}/groom.gfa", ("groom.gfa",)),
+    ("crush", "crush -i {g} -o {d}/crush.gfa", ("crush.gfa",)),
+    ("break", "break -i {g} -d -c 8 -s 20", ()),
+    ("unitig", "unitig -i {g} -f -p 3 --seed 5", ()),
+    ("inject", "inject -i {g} -b {bed} -o {d}/inject.gfa", ("inject.gfa",)),
+    ("cover", "cover -i {g} -n 1 -o {d}/cover.gfa", ("cover.gfa",)),
+    ("priv", "priv -i {g} -c 1 -d 0.1 -b 200 --seed 1 -W -o {d}/priv.gfa", ("priv.gfa",)),
+    ("procbed", "procbed -i {d}/prune.gfa -b {bed}", ()),
+)
+# odgi_tpu's outputs of RENDER_CMDS on a CPU host with Pillow 12.1.0,
+# from tools/render_digests.py: render_digest of each printout and file.
+RENDER_DIGESTS = {
+    "depth_d": {"stdout": "b14f9724b238143a"},
+    "depth_ranges": {"stdout": "b9e67b5c0bbcb1c3"},
+    "depth_windows": {"stdout": "28ec5f7e500b0432"},
+    "degree_S": {"stdout": "633fe49f178542c3"},
+    "degree_d": {"stdout": "7c4e8a48b38ce9c6"},
+    "viz_path": {"stdout": "e3b0c44298fc1c14", "viz_path.png": "bab5695d55c695eb"},
+    "viz_strand": {"stdout": "e3b0c44298fc1c14", "viz_strand.png": "3bf762d97498ca49"},
+    "viz_depth": {"stdout": "e3b0c44298fc1c14", "viz_depth.png": "c098e853243baf63"},
+    "viz_brewer": {"stdout": "e3b0c44298fc1c14", "viz_brewer.png": "8a881c966831fb2f"},
+    "viz_gray": {"stdout": "e3b0c44298fc1c14", "viz_gray.png": "09674e8ef6a294db"},
+    "viz_inversion": {"stdout": "e3b0c44298fc1c14", "viz_inversion.png": "2ee2ba770883d1b2"},
+    "viz_uncalled": {"stdout": "e3b0c44298fc1c14", "viz_uncalled.png": "e239f59278ae7f69"},
+    "viz_prefix": {"stdout": "e3b0c44298fc1c14", "viz_prefix.png": "972b38d9886c865c"},
+    "viz_darkness": {"stdout": "e3b0c44298fc1c14", "viz_darkness.png": "2debd251247d61ba"},
+    "draw": {"stdout": "e3b0c44298fc1c14", "draw.png": "979a2a456fed6d80", "draw.svg": "0e330f6518f29c1c"},
+    "draw_path": {"stdout": "e3b0c44298fc1c14", "draw_path.png": "351847f1ac8a359b", "draw_bed.svg": "66151ced718cadbd"},
+    "unchop": {"stdout": "e3b0c44298fc1c14", "unchop.gfa": "d04239e0088b43f1"},
+    "unchop_bubbles": {"stdout": "e3b0c44298fc1c14", "unchop_bubbles.gfa": "e668a8581d0a12b6"},
+    "chop": {"stdout": "e3b0c44298fc1c14", "chop.gfa": "8be4fb281737b294"},
+    "normalize": {"stdout": "e3b0c44298fc1c14", "normalize.gfa": "011f9c278776c94c"},
+    "flip": {"stdout": "e3b0c44298fc1c14", "flip.gfa": "d5bc63651308019f"},
+    "prune": {"stdout": "e3b0c44298fc1c14", "prune.gfa": "84ae11b8f0e7fc35"},
+    "explode": {"stdout": "e3b0c44298fc1c14", "explode.0.otg": "758011d1981fa18d"},
+    "squeeze": {"stdout": "e3b0c44298fc1c14", "squeeze.gfa": "a9e2bdb55382a62f"},
+    "flatten": {"stdout": "e3b0c44298fc1c14", "flatten.fa": "6877bdc6045ad8e5", "flatten.bed": "b50b4064a88343b0"},
+    "groom": {"stdout": "e3b0c44298fc1c14", "groom.gfa": "b8a1074e0e2f6e18"},
+    "crush": {"stdout": "e3b0c44298fc1c14", "crush.gfa": "d04239e0088b43f1"},
+    "break": {"stdout": "5bf48242b8fe24e5"},
+    "unitig": {"stdout": "08b525628cf9cdb1"},
+    "inject": {"stdout": "e3b0c44298fc1c14", "inject.gfa": "d94627bf0daa9f22"},
+    "cover": {"stdout": "e3b0c44298fc1c14", "cover.gfa": "269746f2127709f3"},
+    "priv": {"stdout": "56d45e95fdff1b23", "priv.gfa": "570161abc29b732e"},
+    "procbed": {"stdout": "e3b0c44298fc1c14"},
+}
+# the same PNG files' bytes (sha256, 16 hex digits), deflated by zlib 1.2.13
+RENDER_PNG_BYTES = {
+    "viz_path.png": "e26c60bf867c12d4",
+    "viz_strand.png": "0e004ad6eab75540",
+    "viz_depth.png": "5fff2821d4d46269",
+    "viz_brewer.png": "01fc2c176f9418dc",
+    "viz_gray.png": "b39ad51788fe796a",
+    "viz_inversion.png": "4615a232d30858f2",
+    "viz_uncalled.png": "1e8c623b8d7c5b42",
+    "viz_prefix.png": "93b4274942d29b91",
+    "viz_darkness.png": "6c5fc1e532bfa590",
+    "draw.png": "41cbfeff2ab4f00e",
+    "draw_path.png": "93b4c83ae1b1f4ac",
+}
 REPLACES = {
     "strata_chunks_2d": "odgi_tpu/ops/pallas_sgd.py:1105",
     "strata_chunks_1d": "odgi_tpu/ops/pallas_sgd.py:1158",
@@ -321,6 +434,44 @@ def shuffled_graph(steps: int, nodes: int, path_steps: int):
 
 def write_smoke_gfa(path: str, steps: int, nodes: int, path_steps: int) -> None:
     ot.write_gfa(shuffled_graph(steps, nodes, path_steps), path)
+
+
+def bubble_graph(nodes: int = 20_000, paths: int = 8, seed: int = 13):
+    """A backbone of 1-8 bp nodes that each path walks, skipping about one
+    node in twelve (bubbles) and, in every other path, running a block of
+    50 nodes backwards (an inversion) every 2,000 nodes: the nodes no path
+    skips form the perfect chains unchop merges (phase 11)."""
+    rng = np.random.default_rng(seed)
+    node_len = rng.integers(1, 9, nodes).astype(np.int64)
+    seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), int(node_len.sum()))
+    skippable = rng.random(nodes) < 1 / 6
+    walks = []
+    for p in range(paths):
+        order = np.arange(nodes, dtype=np.int64)
+        rev = np.zeros(nodes, dtype=bool)
+        if p % 2:
+            for b0 in range(1000, nodes - 50, 2000):
+                order[b0:b0 + 50] = order[b0:b0 + 50][::-1]
+                rev[b0:b0 + 50] = True
+        keep = ~(skippable[order] & (rng.random(nodes) < 0.5))
+        walks.append((order[keep] << 1) | rev[keep])
+    handle = np.concatenate(walks)
+    path_offset = np.concatenate([[0], np.cumsum([len(w) for w in walks])]).astype(np.int64)
+    last = np.zeros(len(handle), dtype=bool)
+    last[path_offset[1:] - 1] = True
+    a, b = handle[:-1][~last[:-1]], handle[1:][~last[:-1]]
+    fa, fb = b ^ 1, a ^ 1
+    flip = (fa < a) | ((fa == a) & (fb < b))   # the canonical side of each edge
+    e = np.unique(np.stack([np.where(flip, fa, a), np.where(flip, fb, b)], 1), axis=0)
+    lens = node_len[handle >> 1]
+    cum = np.cumsum(lens) - lens
+    step_path = np.repeat(np.arange(paths), np.diff(path_offset))
+    return ot.graph_from_arrays(dict(
+        node_len=node_len, seq_offset=np.concatenate([[0], np.cumsum(node_len)]), seq=seq,
+        node_id=np.arange(1, nodes + 1, dtype=np.int64), edge_from=e[:, 0], edge_to=e[:, 1],
+        path_names=tuple(f"HG{p // 2}#{p % 2 + 1}#chr1" for p in range(paths)),
+        path_circular=np.zeros(paths, bool), path_offset=path_offset, step_handle=handle,
+        step_pos=cum - cum[path_offset[step_path]]))
 
 
 # ---------------------------------------------------------------------------
@@ -2208,7 +2359,9 @@ def phase_cli_rest(tmp: str, dev, rec: Record) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_big(g, tmp: str, dev, rec: Record) -> dict:
+def phase_big(g, tmp: str, dev, rec: Record, keep: dict) -> dict:
+    """Phase 7, the 1M-node path; the Ygs-sorted graph and the layout stay
+    in `keep` for phase_render_big."""
     state = {}
     host_s = {}
     c0 = ot.init_layout(g, "d")
@@ -2283,6 +2436,7 @@ def phase_big(g, tmp: str, dev, rec: Record) -> dict:
     add_bounds(rec, "big", g_run, p1, g_run, p2, "xxl")
     full_groups(g, cfg1, g.node_offset.astype(np.float32), True, "xxl", "big/1d", dev, rec)
     full_groups(g, cfg2, c0, False, "xxl", "big/2d", dev, rec)
+    keep.update(gYgs=gYgs, coords=coords)
     return out
 
 
@@ -2332,6 +2486,175 @@ def full_groups(g, cfg, init, one_d: bool, route: str, key: str, dev, rec: Recor
         say("levels_vs_chain", **line)
     del st
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the pictures and the edits
+# ---------------------------------------------------------------------------
+
+
+def render_side_files(d: str) -> dict:
+    """The BED ranges (over the smoke graph's paths p0 and p3, the base
+    names of prune's fragments), the groom target and bubble_graph's GFA
+    of RENDER_CMDS, written into `d`."""
+    files = dict(bed=os.path.join(d, "ranges.bed"), tgt=os.path.join(d, "targets.txt"),
+                 bub=os.path.join(d, "bubbles.gfa"))
+    ot.write_gfa(bubble_graph(), files["bub"])
+    with open(files["bed"], "w") as f:
+        f.write("p0\t100\t5000\tgeneA\np3\t2000\t2600\tgeneB\np3\t40000\t40100\tgeneC\n")
+    with open(files["tgt"], "w") as f:
+        f.write("p3\n")
+    return files
+
+
+def render_argv(cmd: str, names: dict) -> list:
+    return [w.format(**names) for w in cmd.split()]
+
+
+def render_digest(data: bytes) -> str:
+    """16 hex digits of the SHA-256 of a printout or a file's bytes; of a
+    PNG, of its shape and pixels (its bytes depend on the zlib)."""
+    if data[:8] == png.SIGNATURE:
+        img = png.decode(data)
+        data = json.dumps(img.shape).encode() + img.tobytes()
+    return hashlib.sha256(data).hexdigest()[:16]
+
+
+def render_run(names: dict, run) -> dict:
+    """Each command of RENDER_CMDS through `run(argv)` -> (stdout,
+    stderr); key -> dict(stdout=, stderr=, files={name: bytes}, wall_s=)."""
+    out = {}
+    for key, cmd, files in RENDER_CMDS:
+        t0 = time.perf_counter()
+        printed, err = run(render_argv(cmd, names))
+        wall_s = time.perf_counter() - t0
+        got = {}
+        for f in files:
+            with open(os.path.join(names["d"], f), "rb") as fh:
+                got[f] = fh.read()
+        out[key] = dict(stdout=printed, stderr=err, files=got, wall_s=wall_s)
+    return out
+
+
+def phase_render(tmp: str, dev, rec: Record) -> dict:
+    """Every subcommand of the pictures and the edits through the command
+    line on the card (device None), on phase 4c's smoke .otg as generated
+    and its init_layout coordinates (a .lay): each printout and file equal
+    to the same command's on the CPU (device "cpu") in this run, and to
+    odgi_tpu's on a CPU host with PIL (RENDER_DIGESTS; a PNG by its
+    pixels); each written PNG decodes to the array the API renders; then
+    viz and draw of phase 4c's sorted graph and its layout, card against
+    CPU.  Host code: no kernel may launch."""
+    smoke = os.path.join(tmp, "smoke.otg")
+    g = og_io.load_graph(smoke)
+    lay = os.path.join(tmp, "init.lay")
+    ot.save_layout(ot.init_layout(g, "d"), lay, device=dev)
+    names = dict(g=smoke, lay=lay, small=os.path.join(tmp, "small.otg"),
+                 **render_side_files(tmp))
+    dirs = {t: os.path.join(tmp, f"render-{t}") for t in ("card", "cpu")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    walls = {}
+
+    def on_cpu(argv):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli_main.main(argv, device="cpu")
+        if rc != 0:
+            fail(f"render on the CPU {' '.join(argv)}: exit {rc}")
+        return out.getvalue(), err.getvalue()
+
+    def run():
+        t0 = time.perf_counter()
+        card = render_run(dict(names, d=dirs["card"]), lambda argv: cli(argv, walls))
+        wall_s = time.perf_counter() - t0
+        cpu = render_run(dict(names, d=dirs["cpu"]), on_cpu)
+        return dict(wall_s=wall_s, card=card, cpu=cpu)
+
+    res = counted("render", rec, run, levels=())
+    card, cpu = res.pop("card"), res.pop("cpu")
+    out = dict(res, walls_s={}, differs_from_cpu=[], differs_from_odgi_tpu=[], digests={})
+    for key, _, _ in RENDER_CMDS:
+        c, p = card[key], cpu[key]
+        out["walls_s"][key] = c["wall_s"]
+        if (c["stdout"], c["stderr"], c["files"]) != (p["stdout"], p["stderr"], p["files"]):
+            out["differs_from_cpu"].append(key)
+        got = {"stdout": render_digest(c["stdout"].encode()),
+               **{f: render_digest(b) for f, b in c["files"].items()}}
+        out["digests"][key] = got
+        if got != RENDER_DIGESTS.get(key):
+            out["differs_from_odgi_tpu"].append(key)
+
+    # the written pictures against the arrays the API renders
+    want_viz = viz.render_viz(g, width=1500)
+    want_draw = draw.render_png(g, ot.load_layout(lay))
+    # the files' bytes against zlib 1.2.13's deflate there: reported, no gate
+    out["png_bytes_equal_to_odgi_tpu"] = {
+        f: hashlib.sha256(b).hexdigest()[:16] == RENDER_PNG_BYTES.get(f)
+        for c in card.values() for f, b in c["files"].items() if f.endswith(".png")}
+    out["zlib"] = zlib.ZLIB_RUNTIME_VERSION
+    out["pil_installed"] = importlib.util.find_spec("PIL") is not None  # the port never imports it
+    out["viz_png_equals_api"] = bool(np.array_equal(
+        png.decode(card["viz_path"]["files"]["viz_path.png"]), want_viz))
+    out["draw_png_equals_api"] = bool(np.array_equal(
+        png.decode(card["draw"]["files"]["draw.png"]), want_draw))
+
+    # the user's chain: viz of the sorted graph, draw of its layout
+    sorted_g, sorted_lay = os.path.join(tmp, "cli-sorted.otg"), os.path.join(tmp, "cli.lay")
+    chain, chain_walls = {}, {}
+    for t, d in dirs.items():
+        for argv in (["viz", "-i", sorted_g, "-o", os.path.join(d, "sorted_viz.png")],
+                     ["draw", "-i", sorted_g, "-c", sorted_lay, "-p", os.path.join(d, "sorted.png"),
+                      "-s", os.path.join(d, "sorted.svg")]):
+            if t == "card":
+                cli(argv, chain_walls)
+            else:
+                on_cpu(argv)
+        chain[t] = [open(os.path.join(d, f), "rb").read()
+                    for f in ("sorted_viz.png", "sorted.png", "sorted.svg")]
+    out["chain_walls_s"] = chain_walls
+    out["chain_equal_to_cpu"] = chain["card"] == chain["cpu"]
+    out["chain_bytes"] = [len(b) for b in chain["card"]]
+    say("main_path", path="render", **out)
+
+    if any(out["launches"].values()):
+        fail(f"render: kernels launched {out['launches']}")
+    if out["differs_from_cpu"]:
+        fail(f"render: the card's output differs from the CPU's: {out['differs_from_cpu']}")
+    if out["differs_from_odgi_tpu"]:
+        fail(f"render: differs from odgi_tpu's stored digests: {out['differs_from_odgi_tpu']}")
+    if not (out["viz_png_equals_api"] and out["draw_png_equals_api"] and out["chain_equal_to_cpu"]):
+        fail(f"render: viz PNG == API {out['viz_png_equals_api']}, draw PNG == API "
+             f"{out['draw_png_equals_api']}, sorted chain card == CPU {out['chain_equal_to_cpu']}")
+    return out
+
+
+def phase_render_big(g, keep: dict, tmp: str) -> dict:
+    """render_viz of the 1M-node graph after Ygs and draw_png of its layout
+    (phase 7's), through the API, each timed; each PNG decodes to the
+    array rendered."""
+    out = {}
+    t0 = time.perf_counter()
+    img = viz.render_viz(keep["gYgs"], width=1500)
+    out["render_viz_s"] = time.perf_counter() - t0
+    path = os.path.join(tmp, "big_viz.png")
+    t0 = time.perf_counter()
+    png.write(img, path)
+    out["viz_png_write_s"] = time.perf_counter() - t0
+    out["viz_shape"] = list(img.shape)
+    viz_ok = np.array_equal(png.read(path), img)
+    path = os.path.join(tmp, "big_draw.png")
+    t0 = time.perf_counter()
+    draw.draw_png(g, keep["coords"], path)
+    out["draw_png_s"] = time.perf_counter() - t0
+    want = draw.render_png(g, keep["coords"])
+    out["draw_shape"] = list(want.shape)
+    out["draw_pixels_set"] = int((want != 255).any(axis=2).sum())
+    draw_ok = np.array_equal(png.read(path), want)
+    say("main_path", path="render-big", **out, viz_png_ok=viz_ok, draw_png_ok=draw_ok)
+    if not (viz_ok and draw_ok):
+        fail(f"render-big: PNG decodes to the rendered array: viz {viz_ok}, draw {draw_ok}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2455,10 +2778,13 @@ def main() -> int:
         phase_sharded("smoke", g_smoke, smoke["stress_after"], dev, rec, one_device=True)
         phase_sharded("xl", g_xl2, xl["stress_after"], dev, rec)
         del g_smoke, g_xl2
-        phase_big(g_big, tmp, dev, rec)
-        del g_big
+        big_keep = {}
+        phase_big(g_big, tmp, dev, rec, big_keep)
+        phase_render_big(g_big, big_keep, tmp)
+        del g_big, big_keep
         phase_sampler(sampler_in, dev)
         phase_cli_rest(tmp, dev, rec)
+        phase_render(tmp, dev, rec)
 
     print(json.dumps(kernel_line(rec)), flush=True)
     print(smi, flush=True)

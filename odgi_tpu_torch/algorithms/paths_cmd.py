@@ -1,11 +1,11 @@
 """The ``paths`` subcommand's exports: FASTA, the haplotype matrix, the
 non-reference nodes and ranges, the coverage and fraction sequence classes
-and the pairwise overlaps.
+and the pairwise overlaps; and ``flatten``.
 
 Host code (Python and numpy), a copy of the part of
-``odgi_tpu/algorithms/paths_cmd.py`` that ``paths`` reaches, with the same
-output.  ``flatten`` and ``path_jaccard_matrix`` serve other subcommands and
-wait with them.
+``odgi_tpu/algorithms/paths_cmd.py`` that ``paths`` and ``flatten`` reach,
+with the same output.  ``path_jaccard_matrix`` serves another subcommand
+and waits with it.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Optional, TextIO, Tuple
 
 import numpy as np
 
-from ..core.graph import GraphTensors, handle_rank
+from ..core.graph import GraphTensors, handle_is_reverse, handle_rank
 
 
 def path_sequence(g: GraphTensors, p: int) -> bytes:
@@ -80,6 +80,29 @@ def write_haplotype_matrix(g: GraphTensors, out: TextIO, **kwargs) -> None:
         row = [name, str(int(lengths[r])), str(int(steps[r]))]
         row += [str(int(v)) for v in cov[r]]
         out.write("\t".join(row) + "\n")
+
+
+def flatten(
+    g: GraphTensors, fasta_out: TextIO, bed_out: TextIO, name: str = "flattened"
+) -> None:
+    """`odgi flatten`: the FASTA of the node sequences concatenated in rank
+    order, and one BED row a path step placing it there."""
+    fasta_out.write(f">{name}\n")
+    seq = g.seq.tobytes().decode()
+    for i in range(0, len(seq), 80):
+        fasta_out.write(seq[i : i + 80] + "\n")
+    bed_out.write("#name\tstart\tend\tpath\tstrand\tstep.rank\n")
+    ranks = handle_rank(g.step_handle)
+    revs = handle_is_reverse(g.step_handle)
+    starts = g.node_offset[ranks]
+    ends = starts + g.node_len[ranks]
+    sp = g.step_path
+    sr = g.step_rank
+    for k in range(g.num_steps):
+        bed_out.write(
+            f"{name}\t{int(starts[k])}\t{int(ends[k])}\t"
+            f"{g.path_names[sp[k]]}\t{'-' if revs[k] else '+'}\t{int(sr[k])}\n"
+        )
 
 
 def group_identified_pos(path_name: str, delim: str, delim_pos: int):

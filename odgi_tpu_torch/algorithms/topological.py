@@ -23,6 +23,12 @@ def head_nodes(g: GraphTensors) -> np.ndarray:
     return np.nonzero(deg[1::2] == 0)[0]
 
 
+def tail_nodes(g: GraphTensors) -> np.ndarray:
+    """Ranks of nodes with no edges on their right (forward) side."""
+    deg = g.adjacency.degree_out()
+    return np.nonzero(deg[0::2] == 0)[0]
+
+
 class _MinSet:
     """Set with O(log n) min-pop."""
 
@@ -59,9 +65,12 @@ def _edge_key(a: int, b: int) -> tuple:
     return (fa, fb) if (fa, fb) < (a, b) else (a, b)
 
 
-def topological_order(g: GraphTensors, use_heads: bool = True) -> np.ndarray:
+def topological_order(
+    g: GraphTensors, use_heads: bool = True, use_tails: bool = False
+) -> np.ndarray:
     """A topological node-rank order; `use_heads` seeds the ready set with
-    the head nodes (the 's' step of the sort pipeline)."""
+    the head nodes (the 's' step of the sort pipeline), else `use_tails`
+    with the tail nodes."""
     n = g.num_nodes
     if n == 0:
         return np.empty(0, dtype=np.int64)
@@ -76,6 +85,9 @@ def topological_order(g: GraphTensors, use_heads: bool = True) -> np.ndarray:
 
     if use_heads:
         for r in head_nodes(g):
+            s.add(int(r))
+    elif use_tails:
+        for r in tail_nodes(g):
             s.add(int(r))
     for r in range(n):
         if r not in s:

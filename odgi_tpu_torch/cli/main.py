@@ -1,17 +1,20 @@
 """The port's command line: every subcommand ``odgi_tpu/cli/main.py``
-registers itself.
+registers itself, and (``commands2.py``, ``commands3.py``) depth, degree,
+viz, draw, chop, unchop, normalize, flip, prune, explode, squeeze,
+flatten, groom, crush, break, unitig, inject, cover, priv and procbed.
 
 ``python -m odgi_tpu.cli build|view|validate|stats|sort|layout|paths|version``
-has its counterpart in ``python -m odgi_tpu_torch.cli``, which takes the same
-flags, flag for flag, and writes the same bytes: every sort code and
-``sort -u``, ``stats --is-acyclic / --count-walks / --shortest-cycle``,
-and every flag of ``paths``.  Graph inputs are GFA text, the native
-``.otg`` container or the reference's ``.og``, told apart by their first
-bytes.  ``sort`` and ``layout`` run the PG-SGD through the port's kernels
-on the card; ``stats`` computes its array metrics there; the other sort
-codes, the graph walks of ``stats`` and ``paths`` are host code.  The
-subcommands of ``odgi_tpu/cli/commands2.py`` and ``commands3.py`` are not
-ported yet.
+and those have their counterparts in ``python -m odgi_tpu_torch.cli``, which
+takes the same flags, flag for flag, and writes the same bytes: every sort
+code and ``sort -u``, ``stats --is-acyclic / --count-walks /
+--shortest-cycle``, and every flag of ``paths``.  Graph inputs are GFA
+text, the native ``.otg`` container or the reference's ``.og``, told apart
+by their first bytes.  ``sort`` and ``layout`` run the PG-SGD through the
+port's kernels on the card; ``stats`` computes its array metrics there;
+the other sort codes, the graph walks of ``stats``, ``paths``, the
+pictures and the edits are host code.  The rest of ``odgi_tpu``'s
+subcommands (positions, indexes, analytics, tips, bin, layout0, test) are
+not ported yet.
 
 ``main(argv, device)`` runs on the card when `device` is None and raises
 without one; the tests pass ``device="cpu"``.
@@ -46,6 +49,8 @@ from ..ops.sgd import derive_config_2d
 from ..utils.metrics import StepMetrics, maybe_profile
 from ..utils.progress import ProgressMeter
 from .. import version
+from .commands2 import register as register2
+from .commands3 import register as register3
 
 
 def load_any(path: str, device):
@@ -896,6 +901,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-c", "--codename", action="store_true")
     p.add_argument("-r", "--release", action="store_true")
     p.set_defaults(fn=cmd_version)
+
+    register2(sub)
+    register3(sub)
     return ap
 
 

@@ -355,7 +355,8 @@ def test_paths_errors_equal_odgi_tpu(inputs, path_files, flags):
 
 def test_flag_surface_equals_odgi_tpu():
     """Every ported subcommand takes odgi_tpu's flags, flag for flag; the
-    port has every subcommand odgi_tpu/cli/main.py registers itself."""
+    port has every subcommand odgi_tpu/cli/main.py registers itself, and
+    the pictures and edits of commands2.py / commands3.py."""
 
     def surface(parser):
         sub = next(a for a in parser._actions if a.dest == "command")
@@ -366,8 +367,11 @@ def test_flag_surface_equals_odgi_tpu():
         }
 
     ours, theirs = surface(t_cli.build_parser()), surface(j_cli.build_parser())
-    assert sorted(ours) == ["build", "layout", "paths", "sort", "stats", "validate", "version",
-                            "view"]
+    assert sorted(ours) == sorted([
+        "build", "layout", "paths", "sort", "stats", "validate", "version", "view",
+        "depth", "degree", "viz", "draw", "chop", "unchop", "normalize", "flip", "prune",
+        "explode", "squeeze", "flatten", "groom", "crush", "break", "unitig", "inject", "cover",
+        "priv", "procbed"])
     for name in ours:
         assert ours[name] == theirs[name], name
 

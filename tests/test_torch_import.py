@@ -1,4 +1,5 @@
-"""odgi_tpu_torch stands alone: it imports neither JAX nor odgi_tpu."""
+"""odgi_tpu_torch stands alone: it imports neither JAX nor odgi_tpu, nor
+PIL (its pictures are written by io/png.py and algorithms/font.py)."""
 
 import ast
 import pathlib
@@ -16,6 +17,7 @@ def test_every_module_imports_with_jax_and_odgi_tpu_blocked():
         "import sys, importlib, pkgutil\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['odgi_tpu'] = None\n"
+        "sys.modules['PIL'] = None\n"
         "import odgi_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(odgi_tpu_torch.__path__, "
         "'odgi_tpu_torch.')]\n"
@@ -44,7 +46,7 @@ def _imported_roots(path: pathlib.Path):
 def test_no_jax_or_odgi_tpu_import(path):
     for name in _imported_roots(path):
         root = name.split(".")[0]
-        assert root not in ("jax", "jaxlib", "odgi_tpu"), f"{path}: imports {name}"
+        assert root not in ("jax", "jaxlib", "odgi_tpu", "PIL"), f"{path}: imports {name}"
 
 
 def test_parallel_imports_neither_jax_nor_odgi_tpu():
