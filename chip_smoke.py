@@ -115,15 +115,28 @@ Phases, each printing one line or more:
      squeeze, flatten, groom, crush, break, unitig, inject, cover, priv,
      procbed, and unchop then chop -c 4 on a graph of multi-base nodes
      and bubbles (bubble_graph; unchop merges nothing on the smoke graph),
-     each command's wall: every printout and written file equal to the
-     same command's on the CPU in this run and to odgi_tpu's on Pillow
-     12.1.0 (RENDER_DIGESTS, from tools/render_digests.py; a PNG by its
-     pixels, as the card's zlib may differ); the viz and draw PNGs decode
-     to the arrays the API renders; viz and draw of phase 4c's sorted
-     graph and layout, card against CPU; no kernel launches.  And after
-     phase 7, render_viz of the 1M-node graph after Ygs and draw_png of
-     its layout through the API, each timed, each PNG decoding to the
-     array rendered.
+     each command's wall: every printout and written file equal to
+     odgi_tpu's on Pillow 12.1.0 (RENDER_DIGESTS, from
+     tools/render_digests.py; a PNG by its pixels, as the card's zlib may
+     differ); the viz and draw PNGs decode to the arrays the API renders;
+     viz and draw of phase 4c's sorted graph and layout, which no digest
+     holds, card against CPU; no kernel launches.  And after phase 7,
+     render_viz of the 1M-node graph after Ygs and draw_png of its layout
+     through the API, each timed, each PNG decoding to the array rendered.
+ 12. positions, subgraphs, path indexes and analytics
+     (odgi_tpu_torch.cli.main, device None), after phase 11: pathindex,
+     stepindex, panpos (from the .xpt and from the graph), position (-p,
+     -b, -g -I), extract (-r -c, and -b -s -K into three .og), overlap,
+     matrix, similarity, tension (of phase 11's .lay), heaps, pav and bin
+     on phase 4c's smoke .otg; untangle (with its cut points), untangle
+     -p, tips -v and kmers -e -D on phase 9's DRB1-scale graph (on the
+     smoke graph odgi_tpu's untangle and tips take 12-16 s of a CPU, and
+     kmers' walks grow without bound); each command's wall, every
+     printout, stderr and written file equal to odgi_tpu's
+     (POSITION_DIGESTS, from tools/position_digests.py); then `python -m
+     odgi_tpu_torch.cli server` from the smoke .xpt in a subprocess, its
+     replies to /hi, percent-encoded path names, 1-based positions and
+     /stop equal to odgi_tpu's (SERVER_REPLIES); no kernel launches.
 Every path runs with the launch counts set to 0 just before it and read
 just after; every SPIN_EVERY-th launch of a kernel on it is queued behind a
 spin kernel, so that its time holds the kernel alone; each prints the
@@ -153,6 +166,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 import zlib
 
 import numpy as np
@@ -332,6 +346,65 @@ RENDER_PNG_BYTES = {
     "draw.png": "41cbfeff2ab4f00e",
     "draw_path.png": "93b4c83ae1b1f4ac",
 }
+# Phase 12: positions, subgraphs, path indexes and analytics, on phase 4c's
+# smoke .otg ("{g}"), phase 11's .lay of its init_layout coordinates
+# ("{lay}") and BED ranges ("{bed}"), and on the DRB1-scale graph of phase
+# 9 ("{drb}", as .otg) for the commands that take odgi_tpu more than a few
+# seconds of a CPU on the smoke graph: untangle and tips (Python loops over
+# windows: 12 and 16 s) and kmers (its walks grow exponentially without
+# -e/-D).  "{d}" is the output directory.  (key, command, files it writes)
+POSITION_CMDS = (
+    ("pathindex", "pathindex -i {g} -o {d}/smoke.xpt", ("smoke.xpt",)),
+    ("stepindex", "stepindex -i {g} -a 16 -o {d}/smoke.stpidx", ("smoke.stpidx",)),
+    ("panpos_xpt", "panpos -i {d}/smoke.xpt -p p0 -v 1000", ()),
+    ("panpos_graph", "panpos -i {g} -p p3 -v 12345", ()),
+    ("position_p", "position -i {g} -p p3,1000 -r p0", ()),
+    ("position_b", "position -i {g} -b {bed} -r p1", ()),
+    ("position_g", "position -i {g} -g 17,0,- -I", ()),
+    ("extract_r", "extract -i {g} -r p0:100-5000 -c 3 -o {d}/extract_r.gfa", ("extract_r.gfa",)),
+    ("extract_s", "extract -i {g} -b {bed} -s -K -o {d}/split.og",
+     ("split.p0:100-5000.og", "split.p3:2000-2600.og", "split.p3:40000-40100.og")),
+    ("overlap", "overlap -i {g} -b {bed}", ()),
+    ("matrix", "matrix -i {g} -w", ()),
+    ("similarity", "similarity -i {g}", ()),
+    ("tension", "tension -i {g} -c {lay}", ()),
+    ("heaps", "heaps -i {g} -S", ()),
+    ("pav", "pav -i {g} -b {bed} -M", ()),
+    ("bin", "bin -i {g} -w 1000", ()),
+    ("untangle", "untangle -i {drb} -q p1 -q p5 -r p0 -d {d}/cuts.txt", ("cuts.txt",)),
+    ("untangle_paf", "untangle -i {drb} -r p0 -p", ()),
+    ("tips", "tips -i {drb} -r p0 -j -v {d}/tips.tsv", ("tips.tsv",)),
+    ("kmers", "kmers -i {drb} -k 6 -e 4 -D 8 -c", ()),
+)
+# odgi_tpu's outputs of POSITION_CMDS, from tools/position_digests.py:
+# render_digest of each printout and file.
+POSITION_DIGESTS = {
+    "pathindex": {"stdout": "e3b0c44298fc1c14", "stderr": "e3b0c44298fc1c14", "smoke.xpt": "3170ef9bf52d0c71"},
+    "stepindex": {"stdout": "e3b0c44298fc1c14", "stderr": "e3b0c44298fc1c14", "smoke.stpidx": "4c01ae6c20b2bd4c"},
+    "panpos_xpt": {"stdout": "efbdfd4f9df15ea0", "stderr": "e3b0c44298fc1c14"},
+    "panpos_graph": {"stdout": "26253c223a481a3b", "stderr": "e3b0c44298fc1c14"},
+    "position_p": {"stdout": "a86ba34fec953b40", "stderr": "e3b0c44298fc1c14"},
+    "position_b": {"stdout": "ae73b427a48a98d0", "stderr": "e3b0c44298fc1c14"},
+    "position_g": {"stdout": "7a7a31e573488b78", "stderr": "e3b0c44298fc1c14"},
+    "extract_r": {"stdout": "e3b0c44298fc1c14", "stderr": "e3b0c44298fc1c14", "extract_r.gfa": "82f5d580ade584e1"},
+    "extract_s": {"stdout": "e3b0c44298fc1c14", "stderr": "e3b0c44298fc1c14", "split.p0:100-5000.og": "1aec8e797f089d7f", "split.p3:2000-2600.og": "d07d343c21ead910", "split.p3:40000-40100.og": "84c303c3fd3e5e7a"},
+    "overlap": {"stdout": "2c400533aaa52322", "stderr": "e3b0c44298fc1c14"},
+    "matrix": {"stdout": "3a487e7595d89a47", "stderr": "e3b0c44298fc1c14"},
+    "similarity": {"stdout": "0146fee853e84a16", "stderr": "e3b0c44298fc1c14"},
+    "tension": {"stdout": "6dd4efdfb0451554", "stderr": "e3b0c44298fc1c14"},
+    "heaps": {"stdout": "405ef993b7fa5a70", "stderr": "e3b0c44298fc1c14"},
+    "pav": {"stdout": "7fe483e502bc3450", "stderr": "e3b0c44298fc1c14"},
+    "bin": {"stdout": "0bdb4d6afac0789d", "stderr": "e3b0c44298fc1c14"},
+    "untangle": {"stdout": "d259f834d9d480f7", "stderr": "e3b0c44298fc1c14", "cuts.txt": "9f3396c9051e9b05"},
+    "untangle_paf": {"stdout": "7ee2d4944ddb05ea", "stderr": "e3b0c44298fc1c14"},
+    "tips": {"stdout": "2964019dbe9f2383", "stderr": "e3b0c44298fc1c14", "tips.tsv": "e3b0c44298fc1c14"},
+    "kmers": {"stdout": "b00ba3796cebc752", "stderr": "e3b0c44298fc1c14"},
+}
+# `server -i {d}/smoke.xpt`: the queries, and odgi_tpu's replies (its
+# PathIndex's answers, from tools/position_digests.py)
+SERVER_QUERIES = ("/hi", "/p0/1", "/p3/25000", "/p%311/777", "/p0/999999999", "/nope/1",
+                  "/p2/x", "/stop")
+SERVER_REPLIES = ("Hello World!", "9226", "315", "8650", "0", "0", "0", "bye")
 REPLACES = {
     "strata_chunks_2d": "odgi_tpu/ops/pallas_sgd.py:1105",
     "strata_chunks_1d": "odgi_tpu/ops/pallas_sgd.py:1158",
@@ -2520,11 +2593,12 @@ def render_digest(data: bytes) -> str:
     return hashlib.sha256(data).hexdigest()[:16]
 
 
-def render_run(names: dict, run) -> dict:
-    """Each command of RENDER_CMDS through `run(argv)` -> (stdout,
-    stderr); key -> dict(stdout=, stderr=, files={name: bytes}, wall_s=)."""
+def render_run(names: dict, run, cmds=RENDER_CMDS) -> dict:
+    """Each command of `cmds` (RENDER_CMDS or POSITION_CMDS) through
+    `run(argv)` -> (stdout, stderr); key -> dict(stdout=, stderr=,
+    files={name: bytes}, wall_s=)."""
     out = {}
-    for key, cmd, files in RENDER_CMDS:
+    for key, cmd, files in cmds:
         t0 = time.perf_counter()
         printed, err = run(render_argv(cmd, names))
         wall_s = time.perf_counter() - t0
@@ -2540,11 +2614,10 @@ def phase_render(tmp: str, dev, rec: Record) -> dict:
     """Every subcommand of the pictures and the edits through the command
     line on the card (device None), on phase 4c's smoke .otg as generated
     and its init_layout coordinates (a .lay): each printout and file equal
-    to the same command's on the CPU (device "cpu") in this run, and to
-    odgi_tpu's on a CPU host with PIL (RENDER_DIGESTS; a PNG by its
+    to odgi_tpu's on a CPU host with PIL (RENDER_DIGESTS; a PNG by its
     pixels); each written PNG decodes to the array the API renders; then
-    viz and draw of phase 4c's sorted graph and its layout, card against
-    CPU.  Host code: no kernel may launch."""
+    viz and draw of phase 4c's sorted graph and its layout, which no digest
+    holds, card against CPU.  Host code: no kernel may launch."""
     smoke = os.path.join(tmp, "smoke.otg")
     g = og_io.load_graph(smoke)
     lay = os.path.join(tmp, "init.lay")
@@ -2567,18 +2640,14 @@ def phase_render(tmp: str, dev, rec: Record) -> dict:
     def run():
         t0 = time.perf_counter()
         card = render_run(dict(names, d=dirs["card"]), lambda argv: cli(argv, walls))
-        wall_s = time.perf_counter() - t0
-        cpu = render_run(dict(names, d=dirs["cpu"]), on_cpu)
-        return dict(wall_s=wall_s, card=card, cpu=cpu)
+        return dict(wall_s=time.perf_counter() - t0, card=card)
 
     res = counted("render", rec, run, levels=())
-    card, cpu = res.pop("card"), res.pop("cpu")
-    out = dict(res, walls_s={}, differs_from_cpu=[], differs_from_odgi_tpu=[], digests={})
+    card = res.pop("card")
+    out = dict(res, walls_s={}, differs_from_odgi_tpu=[], digests={})
     for key, _, _ in RENDER_CMDS:
-        c, p = card[key], cpu[key]
+        c = card[key]
         out["walls_s"][key] = c["wall_s"]
-        if (c["stdout"], c["stderr"], c["files"]) != (p["stdout"], p["stderr"], p["files"]):
-            out["differs_from_cpu"].append(key)
         got = {"stdout": render_digest(c["stdout"].encode()),
                **{f: render_digest(b) for f, b in c["files"].items()}}
         out["digests"][key] = got
@@ -2619,8 +2688,6 @@ def phase_render(tmp: str, dev, rec: Record) -> dict:
 
     if any(out["launches"].values()):
         fail(f"render: kernels launched {out['launches']}")
-    if out["differs_from_cpu"]:
-        fail(f"render: the card's output differs from the CPU's: {out['differs_from_cpu']}")
     if out["differs_from_odgi_tpu"]:
         fail(f"render: differs from odgi_tpu's stored digests: {out['differs_from_odgi_tpu']}")
     if not (out["viz_png_equals_api"] and out["draw_png_equals_api"] and out["chain_equal_to_cpu"]):
@@ -2654,6 +2721,114 @@ def phase_render_big(g, keep: dict, tmp: str) -> dict:
     say("main_path", path="render-big", **out, viz_png_ok=viz_ok, draw_png_ok=draw_ok)
     if not (viz_ok and draw_ok):
         fail(f"render-big: PNG decodes to the rendered array: viz {viz_ok}, draw {draw_ok}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: positions, subgraphs, path indexes and analytics
+# ---------------------------------------------------------------------------
+
+
+def position_digests(run: dict) -> dict:
+    """render_digest of one command's stdout, stderr and written files."""
+    return {"stdout": render_digest(run["stdout"].encode()),
+            "stderr": render_digest(run["stderr"].encode()),
+            **{f: render_digest(b) for f, b in run["files"].items()}}
+
+
+def serve_and_ask(module: str, src: str, queries, env=None) -> dict:
+    """`python -m <module> server -i src` on a free localhost port: wait
+    for it to answer /hi, send `queries` (the last is /stop) and wait for
+    it to exit.  A query whose handler raises (the connection closes)
+    replies "dropped".  Returns the replies, the exit code, stdout (the
+    port number replaced by PORT) and the seconds to the first answer."""
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    url = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", module, "server", "-i", src, "-p", str(port), "-a", "127.0.0.1"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        while True:
+            try:
+                urllib.request.urlopen(f"{url}/hi", timeout=2).read()
+                break
+            except OSError:
+                if proc.poll() is not None or time.perf_counter() - t0 > 120:
+                    fail(f"server ({module}) did not come up: exit {proc.poll()}")
+                time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+        replies = []
+        for q in queries:
+            try:
+                replies.append(urllib.request.urlopen(url + q, timeout=10).read().decode())
+            except OSError:
+                replies.append("dropped")
+        out, _ = proc.communicate(timeout=30)
+        return dict(replies=replies, rc=proc.returncode,
+                    stdout=out.replace(str(port), "PORT"), up_s=up_s)
+    finally:
+        proc.kill()
+        proc.wait()
+
+
+def position_names(tmp: str, drb) -> dict:
+    """POSITION_CMDS' inputs: the DRB1-scale graph `drb` written as .otg
+    beside phase 4c's smoke .otg and phase 11's .lay and BED in `tmp`, and
+    the output directory."""
+    names = dict(g=os.path.join(tmp, "smoke.otg"), lay=os.path.join(tmp, "init.lay"),
+                 bed=os.path.join(tmp, "ranges.bed"), drb=os.path.join(tmp, "drb1.otg"),
+                 d=os.path.join(tmp, "positions"))
+    og_io.save_graph(drb, names["drb"])
+    os.makedirs(names["d"], exist_ok=True)
+    return names
+
+
+def phase_positions(tmp: str, dev, rec: Record) -> dict:
+    """Every subcommand of the positions, subgraphs, path indexes and
+    analytics through the command line on the card (device None), after
+    phase 11 (whose .lay and BED it reads): each printout, stderr and
+    written file equal to odgi_tpu's (POSITION_DIGESTS, from
+    tools/position_digests.py), each command's wall; then `python -m
+    odgi_tpu_torch.cli server` from phase 12's .xpt in a subprocess, its
+    replies equal to odgi_tpu's (SERVER_REPLIES).  Host code: no kernel
+    may launch."""
+    names = position_names(tmp, shuffled_graph(*DRB1))
+    walls = {}
+
+    def run():
+        t0 = time.perf_counter()
+        card = render_run(names, lambda argv: cli(argv, walls), POSITION_CMDS)
+        wall_s = time.perf_counter() - t0
+        server = serve_and_ask("odgi_tpu_torch.cli", os.path.join(names["d"], "smoke.xpt"),
+                               SERVER_QUERIES)
+        return dict(wall_s=wall_s, card=card, server=server,
+                    server_s=time.perf_counter() - t0 - wall_s)
+
+    res = counted("positions", rec, run, levels=())
+    card, server = res.pop("card"), res.pop("server")
+    out = dict(res, walls_s={}, differs_from_odgi_tpu=[], digests={}, printed_bytes={})
+    for key, _, _ in POSITION_CMDS:
+        c = card[key]
+        out["walls_s"][key] = c["wall_s"]
+        out["printed_bytes"][key] = len(c["stdout"])
+        out["digests"][key] = position_digests(c)
+        if out["digests"][key] != POSITION_DIGESTS.get(key):
+            out["differs_from_odgi_tpu"].append(key)
+    out["server"] = dict(server, replies_equal_to_odgi_tpu=tuple(server["replies"]) == SERVER_REPLIES)
+    say("main_path", path="positions", **out)
+
+    if any(out["launches"].values()):
+        fail(f"positions: kernels launched {out['launches']}")
+    if out["differs_from_odgi_tpu"]:
+        fail(f"positions: differs from odgi_tpu's stored digests: {out['differs_from_odgi_tpu']}")
+    if not out["server"]["replies_equal_to_odgi_tpu"] or server["rc"] != 0:
+        fail(f"positions: server replies {server['replies']} (exit {server['rc']}), "
+             f"odgi_tpu's {list(SERVER_REPLIES)}")
     return out
 
 
@@ -2785,6 +2960,7 @@ def main() -> int:
         phase_sampler(sampler_in, dev)
         phase_cli_rest(tmp, dev, rec)
         phase_render(tmp, dev, rec)
+        phase_positions(tmp, dev, rec)
 
     print(json.dumps(kernel_line(rec)), flush=True)
     print(smi, flush=True)

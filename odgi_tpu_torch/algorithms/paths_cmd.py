@@ -1,11 +1,10 @@
 """The ``paths`` subcommand's exports: FASTA, the haplotype matrix, the
 non-reference nodes and ranges, the coverage and fraction sequence classes
-and the pairwise overlaps; and ``flatten``.
+and the pairwise overlaps; ``flatten``; and the path x path Jaccard matrix
+of ``similarity``.
 
-Host code (Python and numpy), a copy of the part of
-``odgi_tpu/algorithms/paths_cmd.py`` that ``paths`` and ``flatten`` reach,
-with the same output.  ``path_jaccard_matrix`` serves another subcommand
-and waits with it.
+Host code (Python and numpy), a copy of ``odgi_tpu/algorithms/paths_cmd.py``
+with the same output.
 """
 
 from __future__ import annotations
@@ -103,6 +102,26 @@ def flatten(
             f"{name}\t{int(starts[k])}\t{int(ends[k])}\t"
             f"{g.path_names[sp[k]]}\t{'-' if revs[k] else '+'}\t{int(sr[k])}\n"
         )
+
+
+def path_jaccard_matrix(g: GraphTensors) -> np.ndarray:
+    """f64[P, P] pairwise path similarity over covered node bp
+    (reference: src/subcommand/similarity_main.cpp — sparse path x path
+    jaccard/overlap over shared nodes, weighted by node length)."""
+    P, N = g.num_paths, g.num_nodes
+    ranks = handle_rank(g.step_handle)
+    flat = g.step_path.astype(np.int64) * N + ranks
+    touched = np.zeros(P * N, dtype=bool)
+    touched[flat] = True
+    touched = touched.reshape(P, N)
+    w = g.node_len.astype(np.float64)
+    tw = touched * w  # (P, N) bp touched
+    inter = tw @ touched.T  # shared bp
+    sizes = tw.sum(axis=1)
+    union = sizes[:, None] + sizes[None, :] - inter
+    with np.errstate(invalid="ignore", divide="ignore"):
+        jac = np.where(union > 0, inter / union, 0.0)
+    return jac
 
 
 def group_identified_pos(path_name: str, delim: str, delim_pos: int):

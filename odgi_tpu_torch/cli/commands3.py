@@ -1,13 +1,17 @@
 """The subcommands of ``odgi_tpu/cli/commands3.py`` that the port has:
 groom, crush, break, unitig, inject, cover, priv and procbed (graph edits
-and generators), with ``odgi_tpu.cli``'s flags, output and written bytes.
-Host code.
+and generators), tips and bin (analytics), and pathindex, stepindex and
+server (the path indexes and the HTTP position server), with
+``odgi_tpu.cli``'s flags, output and written bytes.  Host code.
 """
 
 from __future__ import annotations
 
 import sys
+from http.server import BaseHTTPRequestHandler, HTTPServer
+from urllib.parse import unquote
 
+from ..algorithms.bin_cmd import bin_path_info_cmd
 from ..algorithms.edits2 import (
     break_cycles,
     crush_n,
@@ -19,6 +23,8 @@ from ..algorithms.edits2 import (
     write_unitigs,
 )
 from ..algorithms.groom import apply_groom
+from ..algorithms.tips import walk_tips
+from ..core.index import XPT_MAGIC, PathIndex, StepIndex
 
 
 def cmd_groom(args):
@@ -73,6 +79,58 @@ def cmd_unitig(args):
         sample_to=args.sample_to,
         sample_plus=args.sample_plus,
         seed=args.seed,
+    )
+    return 0
+
+
+def _resolve_paths(g, one, many):
+    if one:
+        return [g.path_names.index(one)]
+    if many:
+        with open(many) as f:
+            return [g.path_names.index(l.strip()) for l in f if l.strip()]
+    return None
+
+
+def cmd_tips(args):
+    from .main import load_any
+
+    g = load_any(args.input, args.device)
+    nv = open(args.not_visited_tsv, "w") if args.not_visited_tsv else None
+    try:
+        walk_tips(
+            g,
+            sys.stdout,
+            query_paths=_resolve_paths(g, args.query_path, args.query_paths),
+            target_paths=_resolve_paths(g, args.target_path, args.target_paths),
+            n_best=args.n_best,
+            walking_dist=args.jaccard_context,
+            report_additional_jaccards=args.jaccards,
+            not_visited_out=nv,
+        )
+    finally:
+        if nv:
+            nv.close()
+    return 0
+
+
+def cmd_bin(args):
+    from .main import load_any
+
+    if not args.num_bins and not args.bin_width:
+        print("[odgi::bin] error: a bin width or a bin count is required", file=sys.stderr)
+        return 1
+    g = load_any(args.input, args.device)
+    bin_path_info_cmd(
+        g,
+        sys.stdout,
+        num_bins=args.num_bins,
+        bin_width=args.bin_width,
+        path_delim=args.path_delim or "",
+        aggregate_delim=args.aggregate_delim,
+        json_out=args.json,
+        no_seqs=args.no_seqs,
+        no_gap_links=args.no_gap_links,
     )
     return 0
 
@@ -152,6 +210,90 @@ def cmd_procbed(args):
     return 0
 
 
+def cmd_pathindex(args):
+    from .main import load_any
+
+    g = load_any(args.input, args.device)
+    PathIndex.build(g).save(args.out)
+    return 0
+
+
+def cmd_stepindex(args):
+    from .main import load_any
+
+    g = load_any(args.input, args.device)
+    rate = args.step_index_sample_rate
+    if rate and rate % 2 != 0:
+        print(
+            "[odgi::stepindex] error: sample rate must be divisible by 2 (or 0)",
+            file=sys.stderr,
+        )
+        return 1
+    StepIndex.build(g, sample_rate=rate).save(args.out)
+    return 0
+
+
+def cmd_server(args):
+    """HTTP path:pos -> pangenome-pos server (reference:
+    src/subcommand/server_main.cpp; GET /<path>/<1-based-pos>)."""
+    with open(args.input, "rb") as f:
+        head = f.read(8)
+    if head == XPT_MAGIC:
+        index = PathIndex.load(args.input)
+    else:
+        from .main import load_any
+
+        index = PathIndex.build(load_any(args.input, args.device))
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_GET(self):
+            def reply(text: str):
+                body = text.encode()
+                self.send_response(200)
+                self.send_header("Access-Control-Allow-Origin", "*")
+                self.send_header("Access-Control-Expose-Headers", "text/plain")
+                self.send_header(
+                    "Access-Control-Allow-Methods", "GET, POST, DELETE, PUT"
+                )
+                self.send_header("Content-Type", "text/plain")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            if self.path == "/hi":
+                reply("Hello World!")
+                return
+            if self.path == "/stop":
+                reply("bye")
+                raise KeyboardInterrupt
+            # cpp-httplib decodes percent-encoding before matching
+            # (reference: server_main.cpp:103-116); do the same so
+            # path names with '|' ':' etc. resolve from any client
+            parts = unquote(self.path).strip("/").rsplit("/", 1)
+            pan_pos = 0
+            if len(parts) == 2 and parts[1].isdigit():
+                name, pos1 = parts[0], int(parts[1])
+                if index.has_path(name) and index.has_position(name, pos1 - 1):
+                    pan_pos = index.get_pangenome_pos(name, pos1 - 1) + 1
+            reply(str(pan_pos))
+
+        def log_message(self, fmt, *a):
+            print(
+                "GOT REQUEST :", self.path, file=sys.stderr
+            )
+
+    ip = args.ip or "localhost"
+    httpd = HTTPServer((ip, int(args.port)), Handler)
+    print(f"http server listening on http://{ip}:{args.port}")
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+    return 0
+
+
 def register(sub):
     p = sub.add_parser("groom", help="harmonize node orientations")
     p.add_argument("-i", "--input", required=True)
@@ -183,6 +325,29 @@ def register(sub):
     p.add_argument("--seed", type=int, default=None)
     p.set_defaults(fn=cmd_unitig)
 
+    p = sub.add_parser("tips", help="path tip breakpoints vs references")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-q", "--query-path", default=None)
+    p.add_argument("-r", "--target-path", default=None)
+    p.add_argument("-Q", "--query-paths", default=None)
+    p.add_argument("-R", "--target-paths", default=None)
+    p.add_argument("-v", "--not-visited-tsv", default=None)
+    p.add_argument("-n", "--n-best", type=int, default=1)
+    p.add_argument("-w", "--jaccard-context", type=int, default=10000)
+    p.add_argument("-j", "--jaccards", action="store_true")
+    p.set_defaults(fn=cmd_tips)
+
+    p = sub.add_parser("bin", help="pangenome binning")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-D", "--path-delim", default=None)
+    p.add_argument("-a", "--aggregate-delim", action="store_true")
+    p.add_argument("-j", "--json", action="store_true")
+    p.add_argument("-n", "--num-bins", type=int, default=0)
+    p.add_argument("-w", "--bin-width", type=int, default=0)
+    p.add_argument("-s", "--no-seqs", action="store_true")
+    p.add_argument("-g", "--no-gap-links", action="store_true")
+    p.set_defaults(fn=cmd_bin)
+
     p = sub.add_parser("inject", help="inject BED annotations as paths")
     p.add_argument("-i", "--input", required=True)
     p.add_argument("-o", "--out", required=True)
@@ -213,3 +378,29 @@ def register(sub):
     p.add_argument("-i", "--input", required=True)
     p.add_argument("-b", "--bed-targets", required=True)
     p.set_defaults(fn=cmd_procbed)
+
+    # flag parity with the reference commands (pathindex_main.cpp:21-30,
+    # stepindex_main.cpp:22-36): -t/--threads and -P/--progress accepted
+    # and unused
+    p = sub.add_parser("pathindex", help="build positional path index (.xpt)")
+    p.add_argument("-i", "--input", "--idx", required=True, dest="input")
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("-t", "--threads", type=int, default=0)
+    p.add_argument("-P", "--progress", action="store_true")
+    p.set_defaults(fn=cmd_pathindex)
+
+    p = sub.add_parser("stepindex", help="build step index (.stpidx)")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument(
+        "-a", "--step-index-sample-rate", type=int, default=8
+    )
+    p.add_argument("-t", "--threads", type=int, default=0)
+    p.add_argument("-P", "--progress", action="store_true")
+    p.set_defaults(fn=cmd_stepindex)
+
+    p = sub.add_parser("server", help="HTTP path:pos -> pangenome pos server")
+    p.add_argument("-i", "--input", required=True, help="graph or .xpt index")
+    p.add_argument("-p", "--port", required=True)
+    p.add_argument("-a", "--ip", default=None)
+    p.set_defaults(fn=cmd_server)

@@ -1,7 +1,9 @@
 """The port's command line: every subcommand ``odgi_tpu/cli/main.py``
 registers itself, and (``commands2.py``, ``commands3.py``) depth, degree,
 viz, draw, chop, unchop, normalize, flip, prune, explode, squeeze,
-flatten, groom, crush, break, unitig, inject, cover, priv and procbed.
+flatten, groom, crush, break, unitig, inject, cover, priv, procbed,
+kmers, matrix, similarity, tension, heaps, pav, untangle, panpos,
+position, extract, overlap, tips, bin, pathindex, stepindex and server.
 
 ``python -m odgi_tpu.cli build|view|validate|stats|sort|layout|paths|version``
 and those have their counterparts in ``python -m odgi_tpu_torch.cli``, which
@@ -12,9 +14,8 @@ text, the native ``.otg`` container or the reference's ``.og``, told apart
 by their first bytes.  ``sort`` and ``layout`` run the PG-SGD through the
 port's kernels on the card; ``stats`` computes its array metrics there;
 the other sort codes, the graph walks of ``stats``, ``paths``, the
-pictures and the edits are host code.  The rest of ``odgi_tpu``'s
-subcommands (positions, indexes, analytics, tips, bin, layout0, test) are
-not ported yet.
+pictures, the edits, the positions, indexes and analytics are host code.
+``odgi_tpu``'s ``layout0`` and ``test`` are not ported yet.
 
 ``main(argv, device)`` runs on the card when `device` is None and raises
 without one; the tests pass ``device="cpu"``.

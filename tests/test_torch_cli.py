@@ -356,7 +356,8 @@ def test_paths_errors_equal_odgi_tpu(inputs, path_files, flags):
 def test_flag_surface_equals_odgi_tpu():
     """Every ported subcommand takes odgi_tpu's flags, flag for flag; the
     port has every subcommand odgi_tpu/cli/main.py registers itself, and
-    the pictures and edits of commands2.py / commands3.py."""
+    the pictures, edits, positions, indexes and analytics of commands2.py /
+    commands3.py."""
 
     def surface(parser):
         sub = next(a for a in parser._actions if a.dest == "command")
@@ -371,7 +372,10 @@ def test_flag_surface_equals_odgi_tpu():
         "build", "layout", "paths", "sort", "stats", "validate", "version", "view",
         "depth", "degree", "viz", "draw", "chop", "unchop", "normalize", "flip", "prune",
         "explode", "squeeze", "flatten", "groom", "crush", "break", "unitig", "inject", "cover",
-        "priv", "procbed"])
+        "priv", "procbed", "untangle", "panpos", "position", "extract", "overlap",
+        "pathindex", "stepindex", "server", "kmers", "matrix", "similarity", "tension",
+        "heaps", "pav", "tips", "bin"])
+    assert len(ours) == 44 and sorted(set(theirs) - set(ours)) == ["layout0", "test"]
     for name in ours:
         assert ours[name] == theirs[name], name
 

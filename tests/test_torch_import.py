@@ -76,3 +76,26 @@ def test_sampler_rank_imports_neither_jax_nor_odgi_tpu():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+NEW_HOST_MODULES = ["core.index", "algorithms.position", "algorithms.liftover",
+                    "algorithms.path_jaccard", "algorithms.untangle", "algorithms.extract",
+                    "algorithms.analytics", "algorithms.tips", "algorithms.bin_cmd",
+                    "algorithms.paths_cmd", "cli.commands2", "cli.commands3"]
+
+
+def test_position_and_analytics_modules_import_neither_jax_nor_odgi_tpu():
+    """The positions, indexes and analytics (and the handlers that reach
+    them, which `server` runs in its own process) pull in neither jax,
+    odgi_tpu nor PIL."""
+    code = (
+        "import sys, importlib\n"
+        f"for m in {NEW_HOST_MODULES!r}:\n"
+        "    importlib.import_module('odgi_tpu_torch.' + m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'odgi_tpu', 'PIL'))\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

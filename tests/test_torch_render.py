@@ -114,7 +114,9 @@ def run_both(d, argv, outputs=()):
     """Run `argv` through both CLIs in `d`; "{o}" in an argument becomes
     "j" / "t".  Asserts equal exit codes, stdout, stderr and the bytes of
     each file in `outputs`; returns the port's result.  A command that
-    exits through SystemExit must do so in both, with the same code."""
+    exits through SystemExit, or raises KeyError, ValueError or IndexError
+    (an unknown path name, a bad range), must do so in both, with the same
+    code or message."""
     res = {}
     for tag, main, kw in (("j", j_cli.main, {}), ("t", t_cli.main, {"device": "cpu"})):
         argv_o = [os.path.join(d, a.format(o=tag)) if "{o}" in a else a for a in argv]
@@ -122,6 +124,8 @@ def run_both(d, argv, outputs=()):
             res[tag] = run(main, argv_o, **kw)
         except SystemExit as exc:
             res[tag] = ("exit", exc.code)
+        except (KeyError, ValueError, IndexError) as exc:
+            res[tag] = ("raise", type(exc).__name__, str(exc))
     assert res["t"] == res["j"]
     for name in outputs:
         with open(os.path.join(d, name.format(o="j")), "rb") as f:
