@@ -137,6 +137,24 @@ Phases, each printing one line or more:
      odgi_tpu_torch.cli server` from the smoke .xpt in a subprocess, its
      replies to /hi, percent-encoded path names, 1-based positions and
      /stop equal to odgi_tpu's (SERVER_REPLIES); no kernel launches.
+ 13. the library surface, after phase 12: layout0 -p 16 on the DRB1-scale
+     .otg and layout0 (all pairs) on the 1,000-step graph through the
+     command line (device None), and on the DRB1-scale graph a scripted
+     `import odgi` session (load, iterate, create / divide / combine /
+     orient / rewrite / destroy, serialize, to_gfa), the `import odgi_ffi`
+     walkthrough, vg_algos over a fixed set of handles and mondriaan_sort
+     at 2 and 8 parts, every printout, file and transcript equal to
+     odgi_tpu's (LIBRARY_DIGESTS, from tools/library_digests.py); then a
+     user's script on the card: odgi.graph() (device None) loads phase
+     4c's smoke .otg, freeze(), sort_pipeline("Ygs") on the card (counted:
+     the resident 1D kernels) bit-equal to phase 4's sorted graph, and
+     apply_ordering with its order, whose frozen graph holds phase 4's
+     nodes in rank order (up to groom's flips); the chain's walls; then
+     `python -m odgi_tpu_torch.cli test -- PORT_TEST_ARGS` in a subprocess,
+     and the same with jax made unimportable (the card's machine has jax):
+     each exits 0 with at least one card test passed, the second naming
+     the files that import odgi_tpu as left out, the first none where jax
+     is installed; the phase's wall on its own line.
 Every path runs with the launch counts set to 0 just before it and read
 just after; every SPIN_EVERY-th launch of a kernel on it is queued behind a
 spin kernel, so that its time holds the kernel alone; each prints the
@@ -174,8 +192,12 @@ import torch
 
 import odgi_tpu_torch as ot
 from odgi_tpu_torch import native
-from odgi_tpu_torch.algorithms import draw, groom, layout, path_sgd_sort, topological, viz
+from odgi_tpu_torch.algorithms import (draw, groom, layout, mondriaan, path_sgd_sort,
+                                      topological, vg_algos, viz)
 from odgi_tpu_torch.cli import main as cli_main
+from odgi_tpu_torch.cli.commands3 import imports_odgi_tpu
+from odgi_tpu_torch.compat import odgi as odgi_compat
+from odgi_tpu_torch.compat import odgi_ffi
 from odgi_tpu_torch.convert import FIELDS
 from odgi_tpu_torch.io import gfa as gfa_io
 from odgi_tpu_torch.io import og as og_io
@@ -185,6 +207,7 @@ from odgi_tpu_torch.ops import (batched_sgd, kernels, sgd, strata_levels, strata
 from odgi_tpu_torch.ops.sgd import derive_config_1d, derive_config_2d
 from odgi_tpu_torch.parallel import sharded, sharded_strata
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 F64_OPS_PER_S = 34e12       # H100 SXM f64 outside the tensor cores
@@ -405,6 +428,31 @@ POSITION_DIGESTS = {
 SERVER_QUERIES = ("/hi", "/p0/1", "/p3/25000", "/p%311/777", "/p0/999999999", "/nope/1",
                   "/p2/x", "/stop")
 SERVER_REPLIES = ("Hello World!", "9226", "315", "8650", "0", "0", "0", "bye")
+# Phase 13: layout0 through the command line, on phase 12's DRB1-scale .otg
+# ("{drb}") with 16 pivots and on phase 10's 1,000-step graph ("{small}")
+# with all pairs (on the smoke graph all pairs is 10^8 iterations of a Python
+# loop); (key, command, files it writes)
+LIBRARY_CMDS = (
+    ("layout0_drb1", "layout0 -i {drb} -p 16 -o {d}/drb1_p16.svg", ("drb1_p16.svg",)),
+    ("layout0_small", "layout0 -i {small} -o -", ()),
+)
+MONDRIAAN_PARTS = (2, 8)
+# odgi_tpu's outputs of LIBRARY_CMDS and of library_session on the
+# DRB1-scale graph, from tools/library_digests.py: render_digest of each
+# printout, file and transcript.
+LIBRARY_DIGESTS = {
+    "layout0_drb1": {"stdout": "e3b0c44298fc1c14", "stderr": "e3b0c44298fc1c14", "drb1_p16.svg": "7595e18109844f4d"},
+    "layout0_small": {"stdout": "584c72b1c80bb634", "stderr": "e3b0c44298fc1c14"},
+    "odgi_session": "4ced8c3a4ec77017",
+    "odgi_serialize": "b8633696e5b07c71",
+    "odgi_to_gfa": "79e1d27c85fc2b82",
+    "ffi": "65086d23fb88dbea",
+    "vg_algos": "19e3e727f519e9a7",
+    "mondriaan_2": "26fb5899a77fa3c4",
+    "mondriaan_8": "3cfe77fe64fdf6fc",
+    "mondriaan_8_depth": "4d24ded2ebee3552",
+}
+PORT_TEST_ARGS = ("-m", "cuda", "-k", "bcast_equals_plain and resident")  # phase 13's `test`
 REPLACES = {
     "strata_chunks_2d": "odgi_tpu/ops/pallas_sgd.py:1105",
     "strata_chunks_1d": "odgi_tpu/ops/pallas_sgd.py:1158",
@@ -2833,6 +2881,336 @@ def phase_positions(tmp: str, dev, rec: Record) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: the library surface (import odgi / odgi_ffi), vg_algos,
+# mondriaan, layout0 and test
+# ---------------------------------------------------------------------------
+
+
+def library_value(v):
+    """A value of the library surface as plain JSON data: a step handle as
+    ["step", path, rank, kind], an edge as ["edge", first, second], numpy
+    values as Python ones."""
+    if hasattr(v, "path_idx"):
+        return ["step", v.path_idx, v.rank, v._kind]
+    if hasattr(v, "first") and hasattr(v, "second"):
+        return ["edge", v.first(), v.second()]
+    if isinstance(v, np.ndarray):
+        return v.tolist()
+    if isinstance(v, (list, tuple)):
+        return [library_value(x) for x in v]
+    if isinstance(v, dict):
+        return [[library_value(k), library_value(x)] for k, x in v.items()]
+    if isinstance(v, np.bool_):
+        return bool(v)
+    if isinstance(v, np.integer):
+        return int(v)
+    return v
+
+
+def odgi_script(odgi, drb: str, d: str, kw: dict) -> dict:
+    """An `import odgi` session on the graph at `drb`: load, iterate a fixed
+    set of handles, the edges and the paths, mutate (create_handle,
+    create_edge, divide_handle, combine_handles, apply_orientation,
+    rewrite_segment, destroy_edge / _handle / _path), serialize and
+    to_gfa.  Returns the transcript, the serialized bytes and the GFA."""
+    t = []
+    rec = lambda *v: t.append(library_value(list(v)))  # noqa: E731
+    g = odgi.graph(**kw)
+    g.load(drb)
+    rec(g.get_node_count(), g.min_node_id(), g.max_node_id(), g.get_path_count())
+    hs = []
+    g.for_each_handle(lambda h: hs.append(h))
+    rec(len(hs), hs[:20], hs[-20:])
+    for h in hs[::199][:25]:
+        for x in (h, g.flip(h)):
+            nb = []
+            for left in (False, True):
+                seen = []
+                g.follow_edges(x, left, lambda y: seen.append(y))
+                nb.append(seen)
+            rec(x, g.get_id(x), g.get_sequence(x), g.get_length(x), g.get_is_reverse(x),
+                g.forward(x), nb, g.get_degree(x, False), g.get_degree(x, True),
+                g.get_step_count(x), g.steps_of_handle(x, True))
+    edges = []
+    g.for_each_edge(lambda e: edges.append(e))
+    rec(len(edges), edges[:40], edges[-40:])
+    for p in range(g.get_path_count()):
+        walk = [g.path_begin(p)]
+        for _ in range(5):
+            walk.append(g.get_next_step(walk[-1]))
+        rec(g.get_path_name(p), g.get_is_circular(p), g.get_step_count_of_path(p), walk,
+            [g.get_handle_of_step(s) for s in walk], g.path_back(p), g.path_end(p),
+            g.path_front_end(p), g.has_next_step(g.path_back(p)),
+            g.get_previous_step(g.path_begin(p)))
+    new = g.create_handle("ACGTTGCA")
+    g.create_edge(hs[0], new)
+    g.create_edge(new, g.flip(hs[1]))
+    parts = g.divide_handle(new, [3, 5])
+    rec(new, parts, [g.get_sequence(x) for x in parts], g.has_edge(hs[0], parts[0]))
+    rec(g.combine_handles(parts))
+    rec(g.apply_orientation(g.flip(hs[4])), g.get_sequence(hs[4]))
+    s2 = g.get_next_step(g.get_next_step(g.path_begin(0)))
+    rec(g.rewrite_segment(g.path_begin(0), s2, [hs[2], g.flip(hs[3])]))
+    g.destroy_edge(edges[10].first(), edges[10].second())
+    g.destroy_handle(hs[7])
+    g.destroy_path(g.get_path_count() - 1)
+    rec(g.has_edge(edges[10].first(), edges[10].second()), g.get_node_count(),
+        g.get_path_count(), g.get_step_count_of_path(0))
+    path = os.path.join(d, "session.og")
+    g.serialize(path)
+    with open(path, "rb") as f:
+        data = f.read()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        g.to_gfa()
+    return dict(session=t, serialize=data, to_gfa=buf.getvalue())
+
+
+def ffi_script(ffi, drb: str, kw: dict) -> list:
+    """The `import odgi_ffi` walkthrough (the reference's
+    test/python/odgi_ffi.md) on the graph at `drb`: every function but
+    odgi_version, over a fixed set of handles and the first steps of each
+    path.  Returns the transcript."""
+    t = []
+    rec = lambda *v: t.append(library_value(list(v)))  # noqa: E731
+    rec(ffi.odgi_long_long_size(), ffi.odgi_handle_i_size(), ffi.odgi_step_handle_i_size())
+    g = ffi.odgi_load_graph(drb, **kw)
+    rec(ffi.odgi_get_node_count(g), ffi.odgi_max_node_id(g), ffi.odgi_min_node_id(g),
+        ffi.odgi_get_path_count(g))
+    paths, hs = [], []
+    ffi.odgi_for_each_path_handle(g, lambda p: paths.append(p))
+    rec(paths, ffi.odgi_for_each_handle(g, lambda h: hs.append(h)), len(hs))
+    for h in hs[::331][:15]:
+        for x in (h, h ^ 1):
+            nb, on = [], []
+            for left in (False, True):
+                seen = []
+                ffi.odgi_follow_edges(g, x, left, lambda y: seen.append(y))
+                nb.append([(y, ffi.odgi_has_edge(g, y, x) if left else ffi.odgi_has_edge(g, x, y))
+                           for y in seen])
+            ffi.odgi_for_each_step_on_handle(g, x, lambda s: on.append(s))
+            rec(x, ffi.odgi_has_node(g, ffi.odgi_get_id(g, x)), ffi.odgi_get_sequence(g, x),
+                ffi.odgi_get_id(g, x), ffi.odgi_get_is_reverse(g, x), ffi.odgi_get_length(g, x),
+                ffi.odgi_get_step_count(g, x), nb, on)
+    e = g.edge_handle(hs[0], hs[1])
+    rec(ffi.odgi_edge_first_handle(g, e), ffi.odgi_edge_second_handle(g, e))
+    for p in paths:
+        name = ffi.odgi_get_path_name(g, p)
+        b, back = ffi.odgi_path_begin(g, p), ffi.odgi_path_back(g, p)
+        end, front = ffi.odgi_path_end(g, p), ffi.odgi_path_front_end(g, p)
+        rec(name, ffi.odgi_has_path(g, name), ffi.odgi_path_is_empty(g, p),
+            ffi.odgi_get_path_handle(g, name), b, back, end, front, ffi.odgi_is_path_end(g, end),
+            ffi.odgi_is_path_front_end(g, front), ffi.odgi_step_eq(g, b, back))
+        steps = []
+        ffi.odgi_for_each_step_in_path(g, p, lambda s: steps.append(s))
+        for s in steps[:8] + steps[-2:]:
+            rec(ffi.odgi_get_handle_of_step(g, s), ffi.odgi_get_path(g, s),
+                ffi.odgi_get_path_handle_of_step(g, s), ffi.odgi_step_path_id(g, s),
+                ffi.odgi_step_is_reverse(g, s), ffi.odgi_step_prev_id(g, s),
+                ffi.odgi_step_prev_rank(g, s), ffi.odgi_step_next_id(g, s),
+                ffi.odgi_step_next_rank(g, s), ffi.odgi_has_next_step(g, s),
+                ffi.odgi_has_previous_step(g, s), ffi.odgi_get_next_step(g, s),
+                ffi.odgi_get_previous_step(g, s))
+    ffi.odgi_free_graph(g)
+    rec(ffi.odgi_get_node_count(g))
+    return t
+
+
+def vg_script(odgi, vg, mond, drb: str, kw: dict) -> dict:
+    """vg_algos over a fixed set of handles of the graph at `drb` (head /
+    tail tests and distances, Dijkstra both ways, sorted id ranges, A* of
+    the min case, extend into an empty graph), and mondriaan_sort at
+    MONDRIAAN_PARTS parts (and 8 parts weighted by path depth)."""
+    c = odgi.graph(**kw)
+    c.load(drb)
+    g = c.freeze()
+    t = []
+    rec = lambda *v: t.append(library_value(list(v)))  # noqa: E731
+    hs = list(range(0, 2 * g.num_nodes, 397))
+    for h in hs:
+        rec(h, vg.is_head_node(g, h), vg.is_tail_node(g, h), vg.distance_to_head(g, h, 40),
+            vg.distance_to_tail(g, h, 40))
+    for h in hs[:4]:
+        for left in (False, True):
+            rec(h, left, vg.find_shortest_paths(g, h, left))
+    rec(vg.sorted_id_ranges(g))
+    for a, b in zip(hs[:6], hs[6:12]):
+        rec(a, b, vg.a_star(g, (a, 0), (b, 0)))
+    into = odgi.graph()
+    vg.extend(g, into)
+    edges = []
+    into.for_each_edge(lambda e: edges.append(e))
+    rec(into.get_node_count(), edges)
+    out = dict(vg_algos=t)
+    for k in MONDRIAAN_PARTS:
+        out[f"mondriaan_{k}"] = mond.mondriaan_sort(g, k).tolist()
+    out["mondriaan_8_depth"] = mond.mondriaan_sort(g, 8, weight_by_edge_depth=True).tolist()
+    return out
+
+
+def library_session(odgi, ffi, vg, mond, drb: str, d: str, kw: dict) -> dict:
+    """render_digest of each part of the library session on `drb` (the
+    odgi script's transcript, serialized bytes and GFA; the ffi
+    walkthrough; vg_algos; each Mondriaan order), and each part's wall."""
+    out, walls = {}, {}
+    t0 = time.perf_counter()
+    sess = odgi_script(odgi, drb, d, kw)
+    walls["odgi"] = time.perf_counter() - t0
+    out["odgi_session"] = render_digest(json.dumps(sess["session"]).encode())
+    out["odgi_serialize"] = render_digest(sess["serialize"])
+    out["odgi_to_gfa"] = render_digest(sess["to_gfa"].encode())
+    t0 = time.perf_counter()
+    out["ffi"] = render_digest(json.dumps(ffi_script(ffi, drb, kw)).encode())
+    walls["ffi"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for k, v in vg_script(odgi, vg, mond, drb, kw).items():
+        out[k] = render_digest(json.dumps(v).encode())
+    walls["vg_mondriaan"] = time.perf_counter() - t0
+    return dict(digests=out, walls_s=walls)
+
+
+def library_names(tmp: str) -> dict:
+    """LIBRARY_CMDS' inputs: phase 12's DRB1-scale .otg, phase 10's
+    1,000-step graph, and the output directory."""
+    names = dict(drb=os.path.join(tmp, "drb1.otg"), small=os.path.join(tmp, "small.otg"),
+                 d=os.path.join(tmp, "library"))
+    os.makedirs(names["d"], exist_ok=True)
+    return names
+
+
+def port_test(args, block_jax: bool = False) -> dict:
+    """`python -m odgi_tpu_torch.cli test -- <args>` in a subprocess from the
+    checkout's root (with `block_jax`, the same through `main` with jax made
+    unimportable, as on a machine without it): its exit code, the tests it
+    passed and the files it says it left out."""
+    if block_jax:
+        cmd = ["-c", "import sys\nsys.modules['jax'] = None\n"
+               "from odgi_tpu_torch.cli.main import main\n"
+               "sys.exit(main(['test', '--', *sys.argv[1:]]))\n"]
+    else:
+        cmd = ["-m", "odgi_tpu_torch.cli", "test", "--"]
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, *cmd, *args], cwd=REPO, capture_output=True,
+                         text=True, timeout=600)
+    passed = re.findall(r"(\d+) passed", res.stdout)
+    left = res.stderr.split("that import it: ")[1].split() if "that import it: " in res.stderr else []
+    return dict(rc=res.returncode, passed=int(passed[-1]) if passed else 0, left_out=sorted(left),
+                summary=res.stdout.strip().splitlines()[-1:] if res.stdout.strip() else [],
+                wall_s=time.perf_counter() - t0, stderr_tail=res.stderr[-400:])
+
+
+def needs_odgi_tpu() -> list:
+    """The port's test files that import odgi_tpu or jax: what `test`
+    leaves out where jax is not installed."""
+    return sorted(os.path.basename(f) for f in glob.glob(os.path.join(REPO, "tests", "test_torch_*.py"))
+                  if imports_odgi_tpu(f))
+
+
+def phase_library(tmp: str, g_ref, rec: Record) -> dict:
+    """Phase 13, after phase 12: layout0 through the command line
+    (LIBRARY_CMDS) and the library session on the DRB1-scale graph
+    (library_session) on the card's machine, each equal to odgi_tpu's
+    (LIBRARY_DIGESTS); then a user's script on the card: the compat graph
+    of phase 4c's smoke .otg (odgi.graph(), device None), frozen, sorted by
+    sort_pipeline("Ygs") on the card -- bit-equal to phase 4's sorted graph
+    `g_ref` -- and its order applied to the compat graph with
+    apply_ordering, whose frozen graph holds `g_ref`'s nodes in rank order
+    (up to groom's flips, which the script does not apply); then the
+    port's `test` in a subprocess.  Counted: the chain's Y runs the
+    resident 1D kernels."""
+    t_phase = time.perf_counter()
+    names = library_names(tmp)
+    walls = {}
+
+    def run():
+        out = {}
+        t0 = time.perf_counter()
+        out["card"] = render_run(names, lambda argv: cli(argv, walls), LIBRARY_CMDS)
+        out["layout0_s"] = time.perf_counter() - t0
+        out["session"] = library_session(odgi_compat, odgi_ffi, vg_algos, mondriaan,
+                                         names["drb"], names["d"], {})
+        t0 = time.perf_counter()
+        c = odgi_compat.graph()
+        c.load(os.path.join(tmp, "smoke.otg"))
+        out["load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        frozen = c.freeze()
+        out["freeze_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["sorted"] = ot.sort_pipeline(frozen, "Ygs")
+        out["sort_Ygs_s"] = sync_wall(t0)
+        out["compat"], out["frozen"] = c, frozen
+        return out
+
+    res = counted("library", rec, run, levels=("1d",))
+    card, sess = res.pop("card"), res.pop("session")
+    c, frozen, g_sorted = res.pop("compat"), res.pop("frozen"), res.pop("sorted")
+    out = dict(res, walls_s=dict(sess["walls_s"]), digests=dict(sess["digests"]))
+    for key, _, _ in LIBRARY_CMDS:
+        out["walls_s"][key] = card[key]["wall_s"]
+        out["digests"][key] = position_digests(card[key])
+    out["differs_from_odgi_tpu"] = sorted(k for k, v in out["digests"].items()
+                                          if v != LIBRARY_DIGESTS.get(k))
+    if set(out["digests"]) != set(LIBRARY_DIGESTS):
+        fail(f"library: digests of {sorted(out['digests'])}, stored {sorted(LIBRARY_DIGESTS)}")
+    out["order_equal_to_phase4"] = same_graph(g_sorted, g_ref)
+
+    # the sort's order and groom's flips, read off the steps: the node of
+    # step i had rank old[i] and has rank new[i]
+    old, new = frozen.step_handle >> 1, g_sorted.step_handle >> 1
+    order = np.full(frozen.num_nodes, -1, np.int64)
+    order[new] = old
+    flip = np.zeros(frozen.num_nodes, np.int64)
+    flip[new] = (frozen.step_handle ^ g_sorted.step_handle) & 1
+    t0 = time.perf_counter()
+    ids = frozen.node_id
+    c.apply_ordering([c.get_handle(int(ids[r])) for r in order])
+    reordered = c.freeze()
+    out["apply_ordering_s"] = time.perf_counter() - t0
+    seqs = [reordered.node_seq(r, bool(flip[r])) for r in range(reordered.num_nodes)]
+    out["every_node_on_a_path"] = bool((order >= 0).all())
+    out["flipped_by_groom"] = int(flip.sum())
+    out["nodes_equal_to_phase4"] = bool(
+        out["every_node_on_a_path"]
+        and seqs == [g_ref.node_seq(r) for r in range(g_ref.num_nodes)]
+        and np.array_equal(reordered.node_id, g_ref.node_id)
+        and np.array_equal(reordered.step_handle ^ flip[reordered.step_handle >> 1],
+                           g_ref.step_handle))
+    out["chain_s"] = out["load_s"] + out["freeze_s"] + out["sort_Ygs_s"] + out["apply_ordering_s"]
+
+    out["jax_installed"] = importlib.util.find_spec("jax") is not None
+    out["test"] = port_test(PORT_TEST_ARGS)
+    out["test_without_jax"] = port_test(PORT_TEST_ARGS, block_jax=True)
+    p1 = strata_plan.plan_run(frozen, derive_config_1d(frozen), one_d=True)
+    key = "library/1d"
+    rec.bounds[LEVELS_1D][key] = chunk_bounds(p1, True)
+    rec.bounds["strata_merge_sum"][key] = [merge_sum_bound(frozen, True)]
+    rec.bounds["strata_merge_bcast"][key] = [merge_bcast_bound(frozen, p1["data"].num_slots,
+                                                                 True)]
+    borrow_times(rec, "smoke", "library")
+    say("main_path", path="library", **out)
+    say("phase13", wall_s=time.perf_counter() - t_phase)
+
+    if out["differs_from_odgi_tpu"]:
+        fail(f"library: differs from odgi_tpu's stored digests: {out['differs_from_odgi_tpu']}")
+    if not (out["order_equal_to_phase4"] and out["nodes_equal_to_phase4"]):
+        fail(f"library: the compat graph's card sort equals phase 4's: "
+             f"{out['order_equal_to_phase4']}; its reordered nodes: {out['nodes_equal_to_phase4']}")
+    for n in kernels.NAMES:
+        want = p1["groups"] if n in (LEVELS_1D, "strata_merge_sum", "strata_merge_bcast") else 0
+        if out["launches"][n] != want:
+            fail(f"library: {n} launched {out['launches'][n]} times, expected {want} (the "
+                 f"compat script's Y on the resident route)")
+    need = needs_odgi_tpu()
+    for key, want in (("test", [] if out["jax_installed"] else need), ("test_without_jax", need)):
+        tst = out[key]
+        if tst["rc"] != 0 or tst["passed"] < 1 or tst["left_out"] != want or not need:
+            fail(f"library: `{key}` exit {tst['rc']}, {tst['passed']} passed, left out "
+                 f"{tst['left_out']} (expected {want}): {tst['stderr_tail']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The kernels line
 # ---------------------------------------------------------------------------
 
@@ -2952,7 +3330,7 @@ def main() -> int:
         xl, g_xl2 = phase_xl(g_xl, tmp, dev, rec)
         phase_sharded("smoke", g_smoke, smoke["stress_after"], dev, rec, one_device=True)
         phase_sharded("xl", g_xl2, xl["stress_after"], dev, rec)
-        del g_smoke, g_xl2
+        del g_xl2
         big_keep = {}
         phase_big(g_big, tmp, dev, rec, big_keep)
         phase_render_big(g_big, big_keep, tmp)
@@ -2961,6 +3339,7 @@ def main() -> int:
         phase_cli_rest(tmp, dev, rec)
         phase_render(tmp, dev, rec)
         phase_positions(tmp, dev, rec)
+        phase_library(tmp, g_smoke, rec)
 
     print(json.dumps(kernel_line(rec)), flush=True)
     print(smi, flush=True)

@@ -12,9 +12,10 @@ from .convert import graph_from_arrays
 from .core.graph import GraphBuilder, GraphTensors
 from .io.gfa import parse_gfa, write_gfa
 from .io.lay import load_layout, save_layout
+from .io.og import load_graph, save_graph
 
 __all__ = [
     "GraphBuilder", "GraphTensors", "graph_from_arrays", "init_layout",
-    "layout_graph", "load_layout", "parse_gfa", "save_layout", "sort_pipeline",
-    "sum_of_path_node_distances", "write_gfa",
+    "layout_graph", "load_graph", "load_layout", "parse_gfa", "save_graph",
+    "save_layout", "sort_pipeline", "sum_of_path_node_distances", "write_gfa",
 ]

@@ -1,12 +1,17 @@
-"""The subcommands of ``odgi_tpu/cli/commands3.py`` that the port has:
-groom, crush, break, unitig, inject, cover, priv and procbed (graph edits
-and generators), tips and bin (analytics), and pathindex, stepindex and
-server (the path indexes and the HTTP position server), with
-``odgi_tpu.cli``'s flags, output and written bytes.  Host code.
+"""The subcommands of ``odgi_tpu/cli/commands3.py``: groom, crush, break,
+unitig, inject, cover, priv and procbed (graph edits and generators), tips
+and bin (analytics), pathindex, stepindex and server (the path indexes
+and the HTTP position server), layout0 (the legacy stress-SGD layout to
+SVG) and test (the port's own tests), with ``odgi_tpu.cli``'s flags,
+output and written bytes.  Host code.
 """
 
 from __future__ import annotations
 
+import ast
+import glob
+import importlib.util
+import os
 import sys
 from http.server import BaseHTTPRequestHandler, HTTPServer
 from urllib.parse import unquote
@@ -23,7 +28,9 @@ from ..algorithms.edits2 import (
     write_unitigs,
 )
 from ..algorithms.groom import apply_groom
+from ..algorithms.layout0 import draw_svg, sgd_layout
 from ..algorithms.tips import walk_tips
+from ..core.graph import GraphBuilder
 from ..core.index import XPT_MAGIC, PathIndex, StepIndex
 
 
@@ -294,6 +301,92 @@ def cmd_server(args):
     return 0
 
 
+def cmd_layout0(args):
+    from .main import load_any
+
+    g = load_any(args.input, args.device)
+    layout = sgd_layout(
+        g,
+        pivots=args.n_pivots,
+        t_max=args.iter_max,
+        eps=args.eps,
+        x_padding=args.x_padding,
+    )
+    if args.out == "-":
+        draw_svg(sys.stdout, layout, g, args.render_scale)
+    else:
+        with open(args.out, "w") as f:
+            draw_svg(f, layout, g, args.render_scale)
+    return 0
+
+
+def imports_odgi_tpu(path: str) -> bool:
+    """Whether the test file at `path` imports odgi_tpu or jax anywhere (read
+    with ast, not imported)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names = [node.module]
+        else:
+            continue
+        if any(n.split(".")[0] in ("odgi_tpu", "jax") for n in names):
+            return True
+    return False
+
+
+def cmd_test(args):
+    """Run the port's own tests, ``tests/test_torch_*.py``, under pytest
+    with ``--noconftest`` (tests/conftest.py imports jax), the arguments
+    after ``--`` passed on; the exit code is pytest's.  Arguments that name
+    existing files or directories (``path`` or ``path::test``) replace the
+    default files.  Where jax is not installed, odgi_tpu cannot run, so the
+    files that import it (or jax) are left out, and stderr names them.
+    Without pytest, inline smoke checks (as ``odgi_tpu``'s ``test`` has
+    them)."""
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    tests_dir = os.path.join(repo, "tests")
+    if importlib.util.find_spec("pytest") and os.path.isdir(tests_dir):
+        import pytest
+
+        extra = list(args.extra or [])
+        named = [a for a in extra if not a.startswith("-") and os.path.exists(a.split("::")[0])]
+        extra = [a for a in extra if a not in named]
+        files = named or sorted(glob.glob(os.path.join(tests_dir, "test_torch_*.py")))
+        if importlib.util.find_spec("jax") is None:
+            out = [f for f in files
+                   if f.split("::")[0].endswith(".py") and imports_odgi_tpu(f.split("::")[0])]
+            if out:
+                print(f"[odgi::test] jax is not installed, so odgi_tpu cannot run: "
+                      f"leaving out {len(out)} files that import it: "
+                      + " ".join(os.path.basename(f) for f in out), file=sys.stderr)
+            files = [f for f in files if f not in out]
+            if not files:
+                return int(pytest.ExitCode.NO_TESTS_COLLECTED)
+        else:
+            # what tests/conftest.py sets up for the JAX twins: the CPU, 8 devices
+            os.environ.setdefault("JAX_PLATFORMS", "cpu")
+            flags = os.environ.get("XLA_FLAGS", "")
+            if "xla_force_host_platform_device_count" not in flags:
+                os.environ["XLA_FLAGS"] = (
+                    flags + " --xla_force_host_platform_device_count=8").strip()
+        return pytest.main(["--noconftest", "-q", *files, *extra])
+    b = GraphBuilder()
+    b.add_node(1, b"ACGT")
+    b.add_node(2, b"T")
+    b.add_edge(1, False, 2, False)
+    p = b.add_path("x")
+    b.append_step(p, 1, False)
+    b.append_step(p, 2, False)
+    g = b.build()
+    assert g.num_nodes == 2 and g.num_edges == 1 and g.num_steps == 2
+    assert g.validate() == []
+    print("All tests passed")
+    return 0
+
+
 def register(sub):
     p = sub.add_parser("groom", help="harmonize node orientations")
     p.add_argument("-i", "--input", required=True)
@@ -404,3 +497,17 @@ def register(sub):
     p.add_argument("-p", "--port", required=True)
     p.add_argument("-a", "--ip", default=None)
     p.set_defaults(fn=cmd_server)
+
+    p = sub.add_parser("layout0", help="legacy stress-SGD 2D layout -> SVG")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("-m", "--iter-max", type=int, default=30)
+    p.add_argument("-p", "--n-pivots", type=int, default=0)
+    p.add_argument("-e", "--eps", type=float, default=0.01)
+    p.add_argument("-x", "--x-padding", type=float, default=10.0)
+    p.add_argument("-R", "--render-scale", type=float, default=5.0)
+    p.set_defaults(fn=cmd_layout0)
+
+    p = sub.add_parser("test", help="run built-in self tests")
+    p.add_argument("extra", nargs="*", default=None)
+    p.set_defaults(fn=cmd_test)

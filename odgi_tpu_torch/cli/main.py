@@ -3,7 +3,8 @@ registers itself, and (``commands2.py``, ``commands3.py``) depth, degree,
 viz, draw, chop, unchop, normalize, flip, prune, explode, squeeze,
 flatten, groom, crush, break, unitig, inject, cover, priv, procbed,
 kmers, matrix, similarity, tension, heaps, pav, untangle, panpos,
-position, extract, overlap, tips, bin, pathindex, stepindex and server.
+position, extract, overlap, tips, bin, pathindex, stepindex, server,
+layout0 and test: all 46 of ``odgi_tpu.cli``'s subcommands.
 
 ``python -m odgi_tpu.cli build|view|validate|stats|sort|layout|paths|version``
 and those have their counterparts in ``python -m odgi_tpu_torch.cli``, which
@@ -14,8 +15,8 @@ text, the native ``.otg`` container or the reference's ``.og``, told apart
 by their first bytes.  ``sort`` and ``layout`` run the PG-SGD through the
 port's kernels on the card; ``stats`` computes its array metrics there;
 the other sort codes, the graph walks of ``stats``, ``paths``, the
-pictures, the edits, the positions, indexes and analytics are host code.
-``odgi_tpu``'s ``layout0`` and ``test`` are not ported yet.
+pictures, the edits, the positions, indexes and analytics, ``layout0`` and
+``test`` (which runs the port's own tests) are host code.
 
 ``main(argv, device)`` runs on the card when `device` is None and raises
 without one; the tests pass ``device="cpu"``.

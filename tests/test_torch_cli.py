@@ -354,10 +354,10 @@ def test_paths_errors_equal_odgi_tpu(inputs, path_files, flags):
 
 
 def test_flag_surface_equals_odgi_tpu():
-    """Every ported subcommand takes odgi_tpu's flags, flag for flag; the
-    port has every subcommand odgi_tpu/cli/main.py registers itself, and
-    the pictures, edits, positions, indexes and analytics of commands2.py /
-    commands3.py."""
+    """Every subcommand takes odgi_tpu's flags, flag for flag; the port has
+    all 46 of odgi_tpu's subcommands: every one odgi_tpu/cli/main.py
+    registers itself, and the pictures, edits, positions, indexes,
+    analytics, layout0 and test of commands2.py / commands3.py."""
 
     def surface(parser):
         sub = next(a for a in parser._actions if a.dest == "command")
@@ -374,8 +374,8 @@ def test_flag_surface_equals_odgi_tpu():
         "explode", "squeeze", "flatten", "groom", "crush", "break", "unitig", "inject", "cover",
         "priv", "procbed", "untangle", "panpos", "position", "extract", "overlap",
         "pathindex", "stepindex", "server", "kmers", "matrix", "similarity", "tension",
-        "heaps", "pav", "tips", "bin"])
-    assert len(ours) == 44 and sorted(set(theirs) - set(ours)) == ["layout0", "test"]
+        "heaps", "pav", "tips", "bin", "layout0", "test"])
+    assert len(ours) == 46 and set(theirs) - set(ours) == set()
     for name in ours:
         assert ours[name] == theirs[name], name
 
@@ -583,3 +583,62 @@ def test_card_by_default():
     res = subprocess.run([sys.executable, "-m", "odgi_tpu_torch.cli", "version"], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0 and "no CUDA device" in res.stderr and res.stdout == ""
+
+
+# ---------------------------------------------------------------------------
+# test: the port's own tests, in a subprocess
+# ---------------------------------------------------------------------------
+
+
+def port_test(extra, block=()):
+    """`main(["test", "--", *extra], device="cpu")` in a subprocess from the
+    repo root, with the modules in `block` made unimportable."""
+    code = ("import sys\n"
+            + "".join(f"sys.modules[{m!r}] = None\n" for m in block)
+            + "from odgi_tpu_torch.cli.main import main\n"
+            + f"sys.exit(main(['test', '--', *{list(extra)!r}], device='cpu'))\n")
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300, env=dict(os.environ, JAX_PLATFORMS="cpu"))
+
+
+PORT_TEST_FILES = sorted(os.path.basename(f) for f in glob.glob(os.path.join(REPO, "tests", "test_torch_*.py")))
+
+
+def test_port_test_runs_a_narrow_selection():
+    """Every port test file collected (jax is installed here), one test run."""
+    res = port_test(["-k", "test_no_jax_or_odgi_tpu_import and chip_smoke"])
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "1 passed" in res.stdout and "leaving out" not in res.stderr
+
+
+def test_port_test_named_files_replace_the_default():
+    """A named file runs alone (once); without jax, a named file that
+    imports odgi_tpu is left out, and nothing left exits 5."""
+    res = port_test(["tests/test_torch_import.py", "-k", "chip_smoke"])
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "1 passed, " in res.stdout and " 1 deselected" not in res.stdout
+    res = port_test(["tests/test_torch_layout0.py::test_components_are_laid_out_apart"],
+                    block=("jax",))
+    assert res.returncode == 5 and "test_torch_layout0.py" in res.stderr, res.stdout + res.stderr
+
+
+def test_port_test_without_jax_leaves_out_odgi_tpu_files():
+    """Where jax cannot be imported, the files that import odgi_tpu or jax
+    (read, not imported) are left out and named on stderr; the rest run."""
+    res = port_test(["-k", "test_no_jax_or_odgi_tpu_import and chip_smoke"], block=("jax",))
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "1 passed" in res.stdout
+    left = res.stderr.split("that import it: ")[1].split()
+    assert {"test_torch_compat.py", "test_torch_cli.py", "test_torch_layout0.py"} <= set(left)
+    assert sorted(set(PORT_TEST_FILES) - set(left)) == [
+        "test_torch_bcast.py", "test_torch_cuda.py", "test_torch_import.py"]
+
+
+def test_port_test_empty_selection_exits_5():
+    res = port_test(["-k", "no_test_has_this_name"], block=("jax",))
+    assert res.returncode == 5, res.stdout + res.stderr
+
+
+def test_port_test_without_pytest_runs_inline_checks():
+    res = port_test([], block=("pytest",))
+    assert (res.returncode, res.stdout) == (0, "All tests passed\n"), res.stderr

@@ -99,3 +99,125 @@ def test_position_and_analytics_modules_import_neither_jax_nor_odgi_tpu():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+# ---------------------------------------------------------------------------
+# Completeness: every module and public name of odgi_tpu has a counterpart
+# ---------------------------------------------------------------------------
+
+JAX_PKG, PORT = REPO / "odgi_tpu", REPO / "odgi_tpu_torch"
+
+# odgi_tpu module or module:name -> what stands for it in the port: a file
+# ("csrc/x.cu", "ops/x.py") or a name in a module ("ops/x.py:name")
+COUNTERPARTS = {
+    "ops/pallas_sgd.py": ("ops/strata_sgd.py:path_sgd_1d_strata", "ops/strata_sgd.py:path_sgd_2d_strata",
+                          "ops/strata_plan.py", "ops/strata_levels.py", "ops/kernels.py",
+                          "csrc/strata_sgd.cu", "csrc/strata_levels.cu"),
+    "ops/pallas_sgd_xl.py": ("ops/strata_xl.py:pack_od_xl", "csrc/strata_stream.cu"),
+    "ops/pallas_sgd_xxl.py": ("ops/strata_xxl.py:build_schedule", "csrc/strata_blocked.cu"),
+    "parallel/sharded_pallas.py": ("parallel/sharded_strata.py:path_sgd_2d_strata_sharded",),
+    "ops/sgd.py:SgdData": ("ops/batched_sgd.py:SgdData",),
+    "ops/sgd.py:sgd_1d_run": ("ops/batched_sgd.py:sgd_run",),
+    "ops/sgd.py:sgd_2d_run": ("ops/batched_sgd.py:sgd_run",),
+    "ops/sgd.py:sgd_1d_iteration": ("ops/batched_sgd.py:sgd_iteration",),
+    "ops/sgd.py:sgd_2d_iteration": ("ops/batched_sgd.py:sgd_iteration",),
+    "ops/scatter.py:scatter_mean_apply": ("ops/scatter.py:mean_apply",),
+    "ops/scatter.py:LANE": ("ops/strata_plan.py:LANE",),
+    "cli/commands3.py:cmd_version": ("cli/main.py:cmd_version",),
+}
+
+# odgi_tpu module, module:name or module:Class.member -> why the port has
+# no counterpart
+NO_COUNTERPART = {
+    "utils/env.py": "JAX's persistent compilation cache; the port builds its kernels once "
+                    "into odgi_tpu_torch/_build/ (ops/kernels.py)",
+    "ops/scatter.py:factored_gather": "a one-hot matmul gather for the TPU's MXU; on the card "
+                                      "a gather is plain indexing, table[idx]",
+    "ops/sgd.py:SgdConfig.mxu_coords": "the TPU's one-hot matmul form of the coordinate "
+                                       "scatter and gather; the card indexes directly",
+    "ops/sgd.py:SgdConfig.mxu_tables": "the same for the step-table gather",
+    "ops/sgd.py:SgdConfig.pallas": "odgi_tpu's switch off its Pallas kernels; each port run "
+                                   "takes the route odgi_tpu takes with them on",
+    "ops/sgd.py:SgdConfig.rng_impl": "jax.random's generator; the batched path draws from "
+                                     "a torch.Generator (ops/batched_sgd.py)",
+}
+
+
+def public_names(path: pathlib.Path) -> set:
+    """Top-level functions, classes and assigned names not starting with
+    "_" (and, in a package's __init__.py, the names it imports)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            out.update(n.id for t in targets for n in ast.walk(t) if isinstance(n, ast.Name))
+        elif path.name == "__init__.py" and isinstance(node, ast.ImportFrom):
+            out.update(a.asname or a.name for a in node.names)
+    return {n for n in out if not n.startswith("_")}
+
+
+def public_members(path: pathlib.Path) -> set:
+    """"Class.member" for the public methods and class-level fields of each
+    public top-level class."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out = set()
+    for cls in tree.body:
+        if not isinstance(cls, ast.ClassDef) or cls.name.startswith("_"):
+            continue
+        for node in cls.body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                names = [node.name]
+            elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+                targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+                names = [t.id for t in targets if isinstance(t, ast.Name)]
+            else:
+                continue
+            out.update(f"{cls.name}.{n}" for n in names if not n.startswith("_"))
+    return out
+
+
+JAX_MODULES = sorted(str(p.relative_to(JAX_PKG)) for p in JAX_PKG.rglob("*.py"))
+
+
+def target_exists(target: str) -> bool:
+    path, _, name = target.partition(":")
+    f = PORT / path
+    return f.is_file() and (not name or name in public_names(f))
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_port_has_every_module_and_name(module):
+    """The port's module of the same path holds every public name of
+    odgi_tpu's, and each of its classes every public method and field of
+    odgi_tpu's class, or the table names what stands for it, or why
+    nothing does."""
+    if module in COUNTERPARTS or module in NO_COUNTERPART:
+        return
+    ours = PORT / module
+    assert ours.is_file(), f"odgi_tpu/{module} has no counterpart in the port"
+    listed = lambda n: f"{module}:{n}" in COUNTERPARTS or f"{module}:{n}" in NO_COUNTERPART  # noqa: E731
+    missing = [n for n in sorted(public_names(JAX_PKG / module) - public_names(ours))
+               if not listed(n)]
+    missing += [m for m in sorted(public_members(JAX_PKG / module) - public_members(ours))
+                if not listed(m) and not listed(m.split(".")[0])]
+    assert not missing, f"odgi_tpu/{module}: {missing} have no counterpart in the port"
+
+
+@pytest.mark.parametrize("key", sorted(COUNTERPARTS) + sorted(NO_COUNTERPART))
+def test_completeness_table_is_current(key):
+    """Each entry names something odgi_tpu has and the port lacks under the
+    same name, and each counterpart it names exists."""
+    module, _, name = key.partition(":")
+    assert (JAX_PKG / module).is_file()
+    if name:
+        names = public_members if "." in name else public_names
+        assert name in names(JAX_PKG / module)
+        assert name not in names(PORT / module) if (PORT / module).is_file() else True
+    else:
+        assert not (PORT / module).is_file()
+    for target in COUNTERPARTS.get(key, ()):
+        assert target_exists(target), f"{key} -> {target}"
+    assert COUNTERPARTS.get(key) or NO_COUNTERPART.get(key)

@@ -23,6 +23,7 @@ from PIL import Image, ImageDraw, ImageFont
 
 from odgi_tpu.algorithms import coverage as j_cov
 from odgi_tpu.algorithms import degree as j_deg
+from odgi_tpu.algorithms import draw as j_draw
 from odgi_tpu.algorithms import viz as j_viz
 from odgi_tpu.cli import main as j_cli
 from odgi_tpu.core.graph import GraphBuilder
@@ -365,6 +366,68 @@ def test_raster_equals_imagedraw(segs, halves):
     a = np.asarray(im).astype(np.int64)
     want = np.where(a[..., 2] == 9, (a[..., 0] - 1) + (a[..., 1] << 7), -1)
     assert np.array_equal(got, want)
+
+
+coord = st.floats(-20, 140, allow_nan=False, width=32)
+
+
+@st.composite
+def wide_segment(draw_):
+    """One segment of a kind a wide line treats apart: any, horizontal,
+    vertical, steep, drawn right to left, zero-length, or reaching far off
+    the image."""
+    kind = draw_(st.sampled_from(["any", "horizontal", "vertical", "steep", "reversed",
+                                  "zero", "off"]))
+    x0, y0 = draw_(coord), draw_(coord)
+    if kind == "horizontal":
+        return x0, y0, draw_(coord), y0 + draw_(st.floats(-0.875, 0.875, width=32))
+    if kind == "vertical":
+        return x0, y0, x0 + draw_(st.floats(-0.875, 0.875, width=32)), draw_(coord)
+    if kind == "steep":
+        return x0, y0, x0 + draw_(st.floats(-4, 4, width=32)), draw_(coord)
+    if kind == "reversed":
+        return x0, y0, x0 - draw_(st.floats(0, 120, width=32)), draw_(coord)
+    if kind == "zero":
+        return x0, y0, x0, y0
+    far = st.floats(-400, 500, allow_nan=False, width=32)
+    return x0, y0, draw_(far), draw_(far)
+
+
+@pytest.mark.parametrize("w", range(2, 9))
+@PROPS
+@given(segs=st.lists(wide_segment(), min_size=1, max_size=25))
+def test_wide_raster_equals_imagedraw(w, segs):
+    """Wide segments in index order through ImageDraw.line(width=w), colored
+    by their index, against raster_segments' owner of each pixel."""
+    seg = np.asarray(segs, dtype=np.float64)
+    W, H = 97, 61
+    im = Image.new("RGB", (W, H), (0, 0, 0))
+    d = ImageDraw.Draw(im)
+    for i, s in enumerate(seg):
+        d.line(tuple(s), fill=(1 + (i & 0x7F), (i >> 7) & 0xFF, 9), width=w)
+    got = draw.raster_segments(seg[:, 0], seg[:, 1], seg[:, 2], seg[:, 3], W, H, w)
+    a = np.asarray(im).astype(np.int64)
+    want = np.where(a[..., 2] == 9, (a[..., 0] - 1) + (a[..., 1] << 7), -1)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("color_by", ["node", "path"])
+@pytest.mark.parametrize("line_width", [2, 3, 6])
+def test_draw_png_wide_equals_odgi_tpu(inputs, pair, line_width, color_by, tmp_path):
+    """draw_png(line_width > 1) pixel for pixel and byte for byte against
+    odgi_tpu's PIL picture, on the .lay the draw commands read."""
+    gj, gt = pair
+    name = "inv" if gj.num_nodes == inputs["inv"]["g"].num_nodes else "drb1"
+    coords = ot.load_layout(inputs[name]["paths"]["lay"])
+    j_path, t_path = str(tmp_path / "j.png"), str(tmp_path / "t.png")
+    j_draw.draw_png(gj, coords, j_path, width=400, line_width=line_width, color_by=color_by)
+    draw.draw_png(gt, coords, t_path, width=400, line_width=line_width, color_by=color_by)
+    want = np.asarray(Image.open(j_path).convert("RGB"))
+    got = png.read(t_path)
+    assert np.array_equal(got, want)
+    assert got.shape[1] == 400 and (got != 255).any()
+    with open(j_path, "rb") as f, open(t_path, "rb") as g:
+        assert g.read() == f.read()
 
 
 def load_font_tool():
