@@ -6,12 +6,15 @@
 Phases, each printing one line or more:
   1. device: the card's name, the device count, nvidia-smi's name and
      power limit;
-  2. build: compile every csrc/*.cu (one nvcc each, all at once) and print
-     ptxas's registers, shared memory and spills per kernel;
+  2. build: compile every csrc/*.cu (one nvcc each, all at once, beside
+     tools/levels_variants.py's barrier-only grid) and print ptxas's
+     registers, shared memory and spills per kernel, the grid-leveled
+     kernels' grid and the leveled kernels' clusters;
   3. the resident kernels against their plain PyTorch versions on the card,
      group by group over an iter_max=2 plan of the smoke graph (1D and 2D),
      with the stated tolerances; the leveled chunk kernels equal the chain
-     kernels strata_chunks_2d / _1d, and
+     kernels strata_chunks_2d / _1d and the grid-leveled kernels
+     strata_chunks_2d/1d_levels_grid, and
      strata_merge_sum equals the ascending-order loop
      merge_sum_ordered_plain, bit for bit;
   4. the smoke path at the default schedules through the entry points:
@@ -19,8 +22,9 @@ Phases, each printing one line or more:
      nodes) -> parse_gfa -> sort_pipeline("Ygs") -> layout_graph ->
      save_layout/load_layout (.lay) -> sum_of_path_node_distances, with the
      quality and plan gates (the resident route); the Y sort and the layout
-     again with their chunk phases forced onto the chain kernels give the
-     same order and coordinates, bit for bit;
+     again with their chunk phases forced onto the chain kernels, and again
+     onto the grid-leveled kernels, give the same order and
+     coordinates, bit for bit;
  4b. options, on the smoke graph of phase 4: the leveled kernels' tracking
      instances against the untracked kernels (bit-equal drift, timed in
      turns) and the plain versions (bit-equal Delta_max) on the first
@@ -60,8 +64,8 @@ Phases, each printing one line or more:
      -> sort_pipeline("Ygs") -> layout_graph -> .lay -> stats, on the "xl"
      route in 1D and 2D; the layout forced onto the "resident" route with
      the chain kernel gives the same coordinates, bit for bit; then the
-     leveled 1D kernel against the stream chain kernel on the first groups
-     of the full 1D plan;
+     leveled 1D and 2D kernels against the stream chain kernels on the
+     first groups of the full plans;
   7. the 1M-node path (tools/bigscale_bench.py --shuffle --quality):
      10,000,000 steps (10 paths over 1,000,000 nodes) -> sort_pipeline("Y")
      and layout_graph on the "xxl" route, gated on BIGSCALE_r05.json's start
@@ -158,12 +162,20 @@ Phases, each printing one line or more:
 Every path runs with the launch counts set to 0 just before it and read
 just after; every SPIN_EVERY-th launch of a kernel on it is queued behind a
 spin kernel, so that its time holds the kernel alone; each prints the
-conflict levels of its 1D and 2D plans and the host seconds that built
-them (host_s.levels_1d / levels_2d).  The line
+conflict levels of its 1D and 2D plans (depth, chunks a level, the
+grid-leveled kernels' waves a group, the leveled kernels' tiles a group,
+predecessors a chunk) and the host seconds that built the schedule
+(host_s.levels_1d / levels_2d).  Wherever the leveled kernels are held
+against the chain kernels (phases 3, 5, 6, 7 and 8), the grid-leveled
+kernel runs on the same group too, old and new timed in turns, and the
+barrier-only grid of tools/levels_variants.py once: the line "levels_old_vs_new" gives,
+path by path (smoke, XL, 1M, sharded), old and new ms a launch and the
+split of the old one into its grid barriers and the rest.  The line
 before the card line is one JSON object with every kernel's launches,
-error, times and bound (the chain kernels, off the main path, with the
-times of their comparison launches); the last line is the ok/device
-object.  Any failed phase exits non-zero and prints no ok line.
+error, times and bound (the chain and grid-leveled kernels, off the main
+path, with the times of their comparison launches); the last line is the
+ok/device object.  Any failed phase exits non-zero and prints no ok
+line.
 """
 
 from __future__ import annotations
@@ -264,6 +276,12 @@ TRACKS = {False: TRACK_2D, True: TRACK_1D}
 # kernels bit-equal and to time old against new.
 CHAIN = ("strata_chunks_2d", "strata_chunks_2d_stream", "strata_chunks_1d",
          "strata_chunks_1d_stream")
+# The grid-barrier leveled kernels, the design the leveled kernels replaced:
+# off the main path too, launched only to hold the leveled kernels bit-equal
+# and to time old against new.
+GRID_2D, GRID_1D = "strata_chunks_2d_levels_grid", "strata_chunks_1d_levels_grid"
+GRIDS = {False: GRID_2D, True: GRID_1D}  # by one_d
+OFF_PATH = CHAIN + (GRID_2D, GRID_1D)
 CHAIN_OF = {(False, False): "strata_chunks_2d", (False, True): "strata_chunks_2d_stream",
             (True, False): "strata_chunks_1d", (True, True): "strata_chunks_1d_stream"}
 ROUTE_KERNELS = {
@@ -465,6 +483,8 @@ REPLACES = {
     LEVELS_1D: "odgi_tpu/ops/pallas_sgd.py:1158",
     TRACK_2D: "odgi_tpu/ops/pallas_sgd.py:1105",
     TRACK_1D: "odgi_tpu/ops/pallas_sgd.py:1158",
+    GRID_2D: "odgi_tpu/ops/pallas_sgd.py:1105",
+    GRID_1D: "odgi_tpu/ops/pallas_sgd.py:1158",
 }
 ALSO_REPLACES = {
     "strata_chunks_2d_stream": ["odgi_tpu/ops/pallas_sgd_xxl.py:212"],
@@ -479,6 +499,8 @@ ALSO_REPLACES = {
                            "odgi_tpu/parallel/sharded_pallas.py:60"],
     LEVELS_1D: ["odgi_tpu/ops/pallas_sgd_xl.py:795", "odgi_tpu/ops/pallas_sgd_xxl.py:632"],
 }
+ALSO_REPLACES[GRID_2D] = ALSO_REPLACES[LEVELS_2D]
+ALSO_REPLACES[GRID_1D] = ALSO_REPLACES[LEVELS_1D]
 # The broadcast designs strata_merge_bcast replaced, as this script timed
 # them (spin-first launches) on the 1M-node graph's merges before the
 # redesign, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6): the blocked
@@ -494,7 +516,11 @@ SOURCES = {**{n: "odgi_tpu_torch/csrc/strata_sgd.cu" for n in RESIDENT},
            LEVELS_2D: "odgi_tpu_torch/csrc/strata_levels.cu",
            LEVELS_1D: "odgi_tpu_torch/csrc/strata_levels.cu",
            TRACK_2D: "odgi_tpu_torch/csrc/strata_levels.cu",
-           TRACK_1D: "odgi_tpu_torch/csrc/strata_levels.cu"}
+           TRACK_1D: "odgi_tpu_torch/csrc/strata_levels.cu",
+           GRID_2D: "odgi_tpu_torch/csrc/strata_levels.cu",
+           GRID_1D: "odgi_tpu_torch/csrc/strata_levels.cu"}
+# "barrier_only": tools/levels_variants.py's barrier-only grid, loaded in main
+SPLIT = {}
 
 
 def fail(msg: str) -> None:
@@ -703,8 +729,9 @@ def schedule_stats(g, one_d: bool) -> dict:
 class Record:
     """Errors, plain and library times of the comparison phases; launch
     times of the counted paths (events; spun: those behind a spin kernel);
-    bounds per counted launch; times and bounds of the chain kernels'
-    comparison launches (cmp_ms, cmp_bounds)."""
+    bounds per counted launch; times and bounds of the off-path kernels'
+    comparison launches (cmp_ms, cmp_bounds); per path, each compared
+    group's leveled, grid-leveled and barrier-only times (old_new)."""
 
     def __init__(self):
         self.err = {n: {} for n in kernels.NAMES}
@@ -714,8 +741,9 @@ class Record:
         self.spun = {n: {} for n in kernels.NAMES}
         self.bounds = {n: {} for n in kernels.NAMES}
         self.launches = {n: {} for n in kernels.NAMES}
-        self.cmp_ms = {n: {} for n in CHAIN}
-        self.cmp_bounds = {n: {} for n in CHAIN}
+        self.cmp_ms = {n: {} for n in OFF_PATH}
+        self.cmp_bounds = {n: {} for n in OFF_PATH}
+        self.old_new = {}
 
     def add(self, table: str, name: str, key: str, value) -> None:
         getattr(self, table)[name].setdefault(key, []).append(value)
@@ -731,7 +759,14 @@ def run_levels(st, gid: int, drift) -> None:
     `drift`."""
     p = st.plan
     getattr(kernels, LEVELS[st.one_d])(drift, st.base, st.planes, st.od, st.eta, p["cpi"],
-                                       st.perm, st.lvl_rows[gid])
+                                       st.perm, st.lvl_rows[gid], st.pred_off, st.pred)
+
+
+def run_grid(st, gid: int, drift) -> None:
+    """Group `gid` through the grid-leveled kernel, in place on
+    `drift`."""
+    getattr(kernels, GRIDS[st.one_d])(drift, st.base, st.planes, st.od, st.eta,
+                                      st.plan["cpi"], st.perm, st.lvl_rows[gid])
 
 
 def run_chain(st, gid: int, drift, chain: str, sync=None) -> None:
@@ -780,33 +815,57 @@ def rel_err(a, b, scale: float) -> float:
 # ---------------------------------------------------------------------------
 
 
-def level_stats(p: dict, lvl_off: np.ndarray) -> dict:
-    """Depth of each group's levels (min, mean, max) and chunks a level."""
+def level_stats(p: dict, lvl_off: np.ndarray, pred_off: np.ndarray) -> dict:
+    """Depth of each group's levels (min, mean, max), chunks a level, the
+    waves a group of the grid-leveled kernel (a level of n chunks runs
+    ceil(n / grid blocks) waves), the tiles a group of the leveled kernel
+    (a chunk is a cluster's tiles), predecessors a chunk, and the share of
+    chunks with D < CHUNK (whose tiles meet at cluster barriers)."""
     depth = strata_levels.depths(lvl_off)
+    one_d = p["data"].one_d
+    grid = kernels.levels_grid_blocks(one_d)
+    clusters, tiles = kernels.levels_clusters(one_d)
+    waves = np.ceil(np.diff(lvl_off, axis=1) / grid).sum(axis=1)
     return dict(groups=int(p["groups"]), cgs=int(p["cgs"]), depth_min=int(depth.min()),
                 depth_mean=float(depth.mean()), depth_max=int(depth.max()),
-                chunks_per_level=float(p["cgs"] / depth.mean()))
+                chunks_per_level=float(p["cgs"] / depth.mean()),
+                grid_blocks=grid, waves_per_group=float(waves.mean()), clusters=clusters,
+                tiles_per_chunk=tiles, tiles_per_group=int(p["cgs"]) * tiles,
+                preds_per_chunk=float(pred_off[-1] / (len(pred_off) - 1)),
+                d_below_chunk=float((p["d_arr"] < strata_plan.CHUNK).mean()))
 
 
 def compare_levels(st, gid: int, rec: Record, key: str, chain: str, sync=None,
                    record: bool = True) -> dict:
-    """Group `gid` of a state through its leveled kernel and the chain
-    kernel `chain` on the same inputs: torch.equal drift, or fail.  The
-    chain launch's time and bound go to the comparison records when
-    `record` (groups of a main path's size).  Returns the leveled drift and
-    the times."""
-    name = LEVELS[st.one_d]
-    d_l, d_c = st.drift.clone(), st.drift.clone()
-    l_ms = timed(run_levels, st, gid, d_l)
+    """Group `gid` of a state through its leveled kernel, the chain kernel
+    `chain` and the grid-leveled kernel on the same inputs: torch.equal
+    drift, or fail.  With `record` (groups of a main path's size) old and
+    new are timed in turns (new, chain, old, old, new) and the barrier-only
+    grid of tools/levels_variants.py once, each group's times going to
+    rec.old_new[key], and the chain's and the grid kernel's times and
+    bounds to the comparison records.  Returns the leveled drift and the
+    times."""
+    name, grid = LEVELS[st.one_d], GRIDS[st.one_d]
+    d_l, d_c, d_g = st.drift.clone(), st.drift.clone(), st.drift.clone()
+    l_ms = [timed(run_levels, st, gid, d_l)]
     c_ms = timed(run_chain, st, gid, d_c, chain, sync)
-    if not torch.equal(d_l, d_c):
-        fail(f"{name} {key} group {gid}: differs from {chain} "
-             f"(max {float((d_l - d_c).abs().max()):.3e})")
-    out = dict(drift=d_l, levels_ms=l_ms, chain_ms=c_ms,
-               levels=int(st.lvl_rows[gid].shape[0] - 1))
+    g_ms = [timed(run_grid, st, gid, d_g)]
+    for d, other in ((d_c, chain), (d_g, grid)):
+        if not torch.equal(d_l, d):
+            fail(f"{name} {key} group {gid}: differs from {other} "
+                 f"(max {float((d_l - d).abs().max()):.3e})")
+    levels = int(st.lvl_rows[gid].shape[0] - 1)
+    out = dict(drift=d_l, levels_ms=l_ms[0], chain_ms=c_ms, grid_ms=g_ms[0], levels=levels)
     if record:
-        rec.add("cmp_ms", chain, key, c_ms)
-        rec.add("cmp_bounds", chain, key, chunk_bounds(st.plan, st.one_d)[gid])
+        g_ms.append(timed(run_grid, st, gid, st.drift.clone()))
+        l_ms.append(timed(run_levels, st, gid, st.drift.clone()))
+        rec.old_new.setdefault(key, []).append(dict(
+            group=gid, levels=levels, new_ms=sum(l_ms) / 2, grid_ms=sum(g_ms) / 2,
+            barrier_only_ms=timed(SPLIT["barrier_only"], st, gid)))
+        bound = chunk_bounds(st.plan, st.one_d)[gid]
+        for n, ms in ((chain, c_ms), (grid, g_ms[0])):
+            rec.add("cmp_ms", n, key, ms)
+            rec.add("cmp_bounds", n, key, bound)
     return out
 
 
@@ -827,7 +886,7 @@ def compare_group(st, gid: int, rec: Record, key: str) -> None:
     plain = strata_sgd.chunks_1d_plain if st.one_d else strata_sgd.chunks_2d_plain
     p_ms = timed(plain, d_p, *args)
     err = float((d_k - d_p).abs().max())
-    for n in (name, chain):  # equal drift
+    for n in (name, chain, GRIDS[st.one_d]):  # equal drift
         rec.add("err", n, key, err)
         rec.add("plain_ms", n, key, p_ms)
     if not err / scale <= CHUNK_TOL:
@@ -901,7 +960,10 @@ def warm_up(st, sync=None) -> None:
     chunks(st.drift.clone(), *args, *tail)
     plain(st.drift.clone(), *args, *tail)
     getattr(kernels, LEVELS[st.one_d])(st.drift.clone(), *args, st.eta, p["cpi"], st.perm,
-                                       st.lvl_rows[0][:2])
+                                       st.lvl_rows[0][:2], st.pred_off, st.pred)
+    getattr(kernels, GRIDS[st.one_d])(st.drift.clone(), *args, st.eta, p["cpi"], st.perm,
+                                      st.lvl_rows[0][:2])
+    SPLIT["barrier_only"](st, 0)
     for merge in (kernels.strata_merge_sum, strata_sgd.merge_sum_plain):
         merge(st.drift, st.mi, st.coords.clone(), st.upd.clone())
     for bcast in (kernels.strata_merge_bcast, strata_sgd.merge_bcast_plain):
@@ -930,7 +992,7 @@ def phase_kernels(g, dev, rec: Record) -> None:
     torch.cuda.synchronize()
     say("kernels_vs_plain", **{n: dict(max_abs_err=max(x for v in rec.err[n].values()
                                                        for x in v))
-                               for n in RESIDENT + (LEVELS_2D, LEVELS_1D)})
+                               for n in RESIDENT + (LEVELS_2D, LEVELS_1D, GRID_2D, GRID_1D)})
 
 
 # ---------------------------------------------------------------------------
@@ -971,9 +1033,11 @@ def compare_stream_group(st, gid: int, rec: Record, key: str, sync) -> None:
     lv = compare_levels(st, gid, rec, key, resident_name, record=False)
     if not torch.equal(lv["drift"], d_s):
         fail(f"{LEVELS[st.one_d]} {key} group {gid}: differs from {name}")
-    rec.add("err", LEVELS[st.one_d], key, err)
-    rec.add("plain_ms", LEVELS[st.one_d], key, p_ms)
-    line.update(levels_chunk_ms=lv["levels_ms"], levels=lv["levels"])
+    for n in (LEVELS[st.one_d], GRIDS[st.one_d]):
+        rec.add("err", n, key, err)
+        rec.add("plain_ms", n, key, p_ms)
+    line.update(levels_chunk_ms=lv["levels_ms"], grid_chunk_ms=lv["grid_ms"],
+                levels=lv["levels"])
     st.drift = d_s
 
     if st.route != "xxl":  # the XL route merges with the CSR kernels
@@ -1075,6 +1139,8 @@ class KernelTimes:
             "strata_merge_sum_blocked": lambda a: "1d" if a[3].shape[0] == 1 else "2d",
             LEVELS_2D: lambda a: "2d",
             LEVELS_1D: lambda a: "1d",
+            GRID_2D: lambda a: "2d",
+            GRID_1D: lambda a: "1d",
         }
         for n in kernels.SIGNATURES:
             setattr(kernels, n, wrap(n, self.orig[n], dim[n]))
@@ -1100,30 +1166,30 @@ class KernelTimes:
 
 def counted(label: str, rec: Record, fn, levels=("1d", "2d")):
     """Run `fn` with the launch counts set to 0 just before and read just
-    after; per-launch times go to `rec`.  The conflict levels the run
+    after; per-launch times go to `rec`.  The chunk schedules the run
     builds (`levels`: one 1D plan for the sort, one 2D plan for the layout),
     and the host seconds they take, go to out["levels_1d"] /
     out["levels_2d"]."""
     times = KernelTimes(label)
     built = []
-    build_levels = strata_levels.chunk_levels
+    build_schedule = strata_levels.chunk_schedule
 
-    def timed_levels(p):
+    def timed_schedule(p):
         t0 = time.perf_counter()
-        perm, lvl_off = build_levels(p)
+        sched = build_schedule(p)
         built.append(("1d" if p["data"].one_d else "2d", time.perf_counter() - t0,
-                      level_stats(p, lvl_off)))
-        return perm, lvl_off
+                      level_stats(p, sched[1], sched[2])))
+        return sched
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     times.install()
-    strata_levels.chunk_levels = timed_levels
+    strata_levels.chunk_schedule = timed_schedule
     try:
         out = fn()
     finally:
         times.uninstall()
-        strata_levels.chunk_levels = build_levels
+        strata_levels.chunk_schedule = build_schedule
     torch.cuda.synchronize()
     tags = sorted(tag for tag, _, _ in built)
     if tags != sorted(levels):
@@ -1217,7 +1283,7 @@ def run_on_chain(fn, rec: Record, key: str, p: dict, one_d: bool = False):
     bounds = chunk_bounds(p, one_d)
     launched = []
 
-    def chain(drift, base, planes, od, eta, cpi, perm, lvl_off):
+    def chain(drift, base, planes, od, eta, cpi, perm, lvl_off, pred_off, pred):
         off = lvl_off.cpu()
         g0, n = int(off[0]), int(off[-1] - off[0])
         if n != p["cgs"]:
@@ -1237,6 +1303,22 @@ def run_on_chain(fn, rec: Record, key: str, p: dict, one_d: bool = False):
         rec.add("cmp_ms", chain_name, key, t.ms())
         rec.add("cmp_bounds", chain_name, key, b)
     return out
+
+
+def run_on_grid(fn, one_d: bool = False):
+    """Run `fn` with the chunk phase of its dimension on the
+    grid-leveled kernel in place of the leveled kernel (uncounted)."""
+    attr = LEVELS[one_d]
+    leveled, grid = getattr(kernels, attr), getattr(kernels, GRIDS[one_d])
+
+    def old(drift, base, planes, od, eta, cpi, perm, lvl_off, pred_off, pred):
+        grid(drift, base, planes, od, eta, cpi, perm, lvl_off)
+
+    setattr(kernels, attr, old)
+    try:
+        return fn()
+    finally:
+        setattr(kernels, attr, leveled)
 
 
 # ---------------------------------------------------------------------------
@@ -1305,11 +1387,20 @@ def phase_smoke(gfa_path: str, tmp: str, dev, rec: Record) -> tuple:
     chain = run_on_chain(lambda: ot.layout_graph(g2, device=dev), rec, "smoke/2d", p2)
     out["layout_chain_s"] = sync_wall(t0)
     out["chain_equal"] = bool(np.array_equal(chain, coords))
+    # and on the grid-leveled kernels: the same again
+    g_gr = run_on_grid(lambda: ot.sort_pipeline(g, "Y", device=dev), one_d=True)
+    out["sort_Y_grid_equal"] = bool(np.array_equal(g_lv.node_id, g_gr.node_id)
+                                    and np.array_equal(g_lv.step_handle, g_gr.step_handle))
+    out["grid_equal"] = bool(np.array_equal(
+        run_on_grid(lambda: ot.layout_graph(g2, device=dev)), coords))
     say("main_path", path="smoke", **out, twin=TWIN)
     if not out["sort_Y_chain_equal"]:
         fail("smoke Y sort differs from the same sort on the chain kernel")
     if not out["chain_equal"]:
         fail(f"smoke layout differs from the chain kernel's (max {np.abs(chain - coords).max()})")
+    if not (out["sort_Y_grid_equal"] and out["grid_equal"]):
+        fail(f"smoke Y sort / layout differ from the same on the grid-leveled kernels: "
+             f"{out['sort_Y_grid_equal']} / {out['grid_equal']}")
 
     if not np.isfinite(coords).all():
         fail("layout coordinates not finite")
@@ -1337,14 +1428,15 @@ def compare_tracked(st, gid: int, rec: Record, key: str) -> dict:
     one_d, p = st.one_d, st.plan
     fn, track = getattr(kernels, LEVELS[one_d]), TRACKS[one_d]
     plain = strata_sgd.chunks_1d_levels_plain if one_d else strata_sgd.chunks_2d_levels_plain
-    args = (st.base, st.planes, st.od, st.eta, p["cpi"], st.perm, st.lvl_rows[gid])
+    plain_args = (st.base, st.planes, st.od, st.eta, p["cpi"], st.perm, st.lvl_rows[gid])
+    args = plain_args + (st.pred_off, st.pred)
     drifts = [st.drift.clone() for _ in range(5)]
     words = [torch.zeros(1, dtype=torch.float32, device=st.drift.device) for _ in range(3)]
     u_ms = [timed(fn, drifts[0], *args)]
     t_ms = [timed(lambda: fn(drifts[1], *args, dmax=words[0]))]
     t_ms.append(timed(lambda: fn(drifts[2], *args, dmax=words[1])))
     u_ms.append(timed(fn, drifts[3], *args))
-    p_ms = timed(lambda: plain(drifts[4], *args, dmax=words[2]))
+    p_ms = timed(lambda: plain(drifts[4], *plain_args, dmax=words[2]))
     for d in drifts[1:4]:
         if not torch.equal(d, drifts[0]):
             fail(f"{track} {key} group {gid}: drift differs from the untracked kernel's")
@@ -1487,7 +1579,7 @@ def phase_options(smoke: dict, sm: dict, tmp: str, dev, rec: Record) -> dict:
         warm_up(st)
         getattr(kernels, LEVELS[one_d])(st.drift.clone(), st.base, st.planes, st.od, st.eta,
                                         st.plan["cpi"], st.perm, st.lvl_rows[0][:2],
-                                        dmax=st.dmax[:1].clone())
+                                        st.pred_off, st.pred, dmax=st.dmax[:1].clone())
         for gid in range(FULL_GROUPS):
             say("tracked_vs_untracked",
                 **compare_tracked(st, gid, rec, f"smoke/{'1d' if one_d else '2d'}"))
@@ -2026,6 +2118,7 @@ def phase_xl(g, tmp: str, dev, rec: Record) -> tuple:
         fail(f"xl quality did not improve: {out}")
     add_bounds(rec, "xl", g, p1, g2, p2, "xl")
     full_groups(g, cfg1, g.node_offset.astype(np.float32), True, "xl", "xl/1d", dev, rec)
+    full_groups(g2, cfg2, c0, False, "xl", "xl/2d", dev, rec)
     return out, g2
 
 
@@ -2596,7 +2689,8 @@ def full_groups(g, cfg, init, one_d: bool, route: str, key: str, dev, rec: Recor
     for gid in range(FULL_GROUPS):
         lv = compare_levels(st, gid, rec, key, CHAIN_OF[(one_d, True)], sync=sync)
         line = dict(key=key, group=gid, cgs=st.plan["cgs"], levels=lv["levels"],
-                    levels_ms=lv["levels_ms"], chain_ms=lv["chain_ms"], state_build_s=build_s)
+                    levels_ms=lv["levels_ms"], grid_ms=lv["grid_ms"], chain_ms=lv["chain_ms"],
+                    state_build_s=build_s)
         st.drift = lv["drift"]
         if route == "xxl":
             line.update(compare_sums(st))
@@ -3215,6 +3309,22 @@ def phase_library(tmp: str, g_ref, rec: Record) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def old_new_line(rec: Record) -> dict:
+    """Per path and dimension, over its compared groups: the leveled
+    kernel's and the grid-leveled kernel's ms a launch (timed in turns
+    in one call), and the split of the grid kernel's time: its grid barriers
+    alone (the barrier-only grid) and the rest (the chunks and their
+    waves)."""
+    out = {}
+    for key, rows in sorted(rec.old_new.items()):
+        mean = lambda f: sum(r[f] for r in rows) / len(rows)
+        new, grid, barrier = mean("new_ms"), mean("grid_ms"), mean("barrier_only_ms")
+        out[key] = dict(groups=len(rows), levels=mean("levels"), new_ms=new, grid_ms=grid,
+                        new_over_grid=new / grid, barrier_only_ms=barrier,
+                        grid_chunks_ms=grid - barrier, barrier_share_of_grid=barrier / grid)
+    return out
+
+
 def kernel_line(rec: Record) -> dict:
     """One record per kernel: launches and mean time per launch over every
     counted path, the bound of those launches, and the plain version's and
@@ -3231,7 +3341,7 @@ def kernel_line(rec: Record) -> dict:
         common = dict(name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],
                       also_replaces=ALSO_REPLACES.get(n),
                       max_abs_err=max(x for v in rec.err[n].values() for x in v))
-        if n in CHAIN:
+        if n in OFF_PATH:
             if rec.events[n] or rec.launches[n]:
                 fail(f"{n}: launched on a counted path {rec.launches[n]}")
             per_path = {}
@@ -3292,14 +3402,22 @@ def main() -> int:
     say("device", name=name, count=count, nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda)
 
+    from tools import levels_variants
+
     t0 = time.perf_counter()
-    kernels.build()
+    with tempfile.TemporaryDirectory() as split_dir:
+        split = levels_variants.build_variants(split_dir)
+        kernels.build()
+        lib = levels_variants.load_variants(split, split_dir)
+    SPLIT["barrier_only"] = lambda st, gid: levels_variants.barrier_only(lib, st, gid)
     build_s = time.perf_counter() - t0
     report = [ln.strip() for ln in kernels.ptxas_report().splitlines()
               if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
     say("build", seconds=build_s, ptxas=report,
         levels_grid_blocks={"2d": kernels.levels_grid_blocks(),
-                            "1d": kernels.levels_grid_blocks(one_d=True)})
+                            "1d": kernels.levels_grid_blocks(one_d=True)},
+        levels_clusters={"2d": kernels.levels_clusters(),
+                         "1d": kernels.levels_clusters(one_d=True)})
 
     rec = Record()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3341,6 +3459,7 @@ def main() -> int:
         phase_positions(tmp, dev, rec)
         phase_library(tmp, g_smoke, rec)
 
+    say("levels_old_vs_new", card=smi, per_path=old_new_line(rec))
     print(json.dumps(kernel_line(rec)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

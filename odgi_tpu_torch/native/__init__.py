@@ -1,12 +1,16 @@
-"""The native GFA parser (``src/gfa_parse.cpp``), built at first use.
+"""The native GFA parser (``src/gfa_parse.cpp``) and chunk schedule
+(``src/strata_schedule.cpp``), each built at first use.
 
-A copy of ``odgi_tpu/native``'s C++ parser: one mmap pass over the file
-into flat arrays.  ``g++ -O3 -std=c++17`` builds it into
+The parser is a copy of ``odgi_tpu/native``'s C++ parser: one mmap pass
+over the file into flat arrays.  ``g++ -O3 -std=c++17`` builds it into
 ``odgi_tpu_torch/_build/`` (keyed by a hash of the source and the flags,
 like the CUDA kernels) the first time a GFA path is parsed, and ``ctypes``
 binds its plain C interface.  Importing this module builds nothing.
 Without a working ``g++`` the parser is unavailable (``get_lib()`` returns
 None and ``build_error()`` says why) and ``io/gfa.py`` parses in Python.
+The schedule library (``schedule_lib()``) is built the same way, the first
+time a strata run plans its chunks; without it ``ops/strata_levels.py``
+builds the same schedule in numpy.
 """
 
 from __future__ import annotations
@@ -24,11 +28,13 @@ import numpy as np
 from ..core.graph import GraphTensors
 
 SRC = Path(__file__).resolve().parent / "src" / "gfa_parse.cpp"
+SCHEDULE_SRC = SRC.with_name("strata_schedule.cpp")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 _lock = threading.Lock()
 _state: dict = {"lib": None, "tried": False, "error": None}
+_schedule: dict = {"lib": None, "tried": False, "error": None}
 
 
 class _GfaResult(ctypes.Structure):
@@ -54,22 +60,22 @@ class _GfaResult(ctypes.Structure):
     ]
 
 
-def library_path() -> Path:
-    """The shared library of this source and these flags."""
-    key = hashlib.sha256(" ".join(CXX_FLAGS).encode() + SRC.read_bytes())
-    return BUILD_DIR / f"gfa_parse_{key.hexdigest()[:16]}.so"
+def library_path(src: Path = SRC) -> Path:
+    """The shared library of the source `src` and these flags."""
+    key = hashlib.sha256(" ".join(CXX_FLAGS).encode() + src.read_bytes())
+    return BUILD_DIR / f"{src.stem}_{key.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the parser unless this key is built already; raises
-    RuntimeError when g++ is missing or fails."""
-    so = library_path()
+def build(src: Path = SRC) -> Path:
+    """Compile `src` (by default the parser) unless this key is built
+    already; raises RuntimeError when g++ is missing or fails."""
+    so = library_path(src)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
     try:
-        proc = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(SRC)],
+        proc = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(src)],
                               capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.SubprocessError) as exc:
         raise RuntimeError(f"g++ did not run: {exc!r}") from exc
@@ -101,6 +107,25 @@ def get_lib() -> Optional[ctypes.CDLL]:
 def build_error() -> Optional[str]:
     """Why the parser is unavailable (None when it loaded or was not tried)."""
     return _state["error"]
+
+
+def schedule_lib() -> Optional[ctypes.CDLL]:
+    """The loaded chunk schedule library (built on the first call), or None
+    when it cannot be built or loaded (``_schedule["error"]`` says why)."""
+    with _lock:
+        if not _schedule["tried"]:
+            _schedule["tried"] = True
+            try:
+                lib = ctypes.CDLL(str(build(SCHEDULE_SRC)))
+            except (RuntimeError, OSError) as exc:
+                _schedule["error"] = str(exc)
+            else:
+                p = ctypes.c_void_p
+                lib.odgi_strata_schedule.restype = ctypes.c_int64
+                lib.odgi_strata_schedule.argtypes = [ctypes.c_int64, ctypes.c_int64, p, p, p, p,
+                                                     p, ctypes.c_int64]
+                _schedule["lib"] = lib
+        return _schedule["lib"]
 
 
 def parse_gfa_native(path: str) -> Optional[GraphTensors]:

@@ -26,14 +26,19 @@ strata_chunks_1d_levels             pallas_sgd.py _chunk_1d and the 1D chunk
 strata_chunks_2d_levels_track       pallas_sgd.py _make_kernel_2d with track
   (strata_levels.cu, TRACK)           (the dmax output, delta early stop)
 strata_chunks_1d_levels_track       pallas_sgd.py _make_kernel_1d with track
+strata_chunks_2d_levels_grid        as strata_chunks_2d_levels: the grid-
+  (strata_levels.cu)                  barrier design, off the main path
+strata_chunks_1d_levels_grid        as strata_chunks_1d_levels, likewise
 The XL route's merge is strata_merge_sum / strata_merge_bcast, which have
 no node-width cap (the counterpart of XL's streamed full-width merge); the
 XXL route's is strata_merge_sum_blocked / strata_merge_bcast: one pass over
 the slots serves every route.
 The chunk phase of every route is strata_chunks_2d_levels /
-strata_chunks_1d_levels; the chain kernels strata_chunks_2d / _1d and
-their stream twins compute the same drift and stay as their reference,
-off the main path.
+strata_chunks_1d_levels: a thread-block cluster a chunk, chunks handed out
+by a ticket in level order, each waiting only for its predecessors
+(``ops/strata_levels.py``).  The chain kernels strata_chunks_2d / _1d,
+their stream twins and the grid-barrier kernels strata_chunks_*_levels_grid
+compute the same drift and stay as their reference, off the main path.
 """
 
 from __future__ import annotations
@@ -60,6 +65,8 @@ NVCC_FLAGS = (
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _CHUNK_ARGS = [P, P, P, LL, P, P, I, I, I, P]
 _STREAM_ARGS = [P, P, P, LL, P, P, P, I, I, I, P]
+_LEVELS_ARGS = [P, P, P, LL, P, P, I, P, P, I, P, P, P, ctypes.c_uint, P, P]
+_GRID_ARGS = [P, P, P, LL, P, P, I, P, P, I, P, P]
 # name -> ctypes argument types of its C entry (all return int)
 SIGNATURES = {
     "strata_chunks_2d": _CHUNK_ARGS,
@@ -69,9 +76,15 @@ SIGNATURES = {
     "strata_chunks_2d_stream": _STREAM_ARGS,
     "strata_chunks_1d_stream": _STREAM_ARGS,
     "strata_merge_sum_blocked": [P, LL, P, P, P, P, P, I, I, I, I, I, P],
-    "strata_chunks_2d_levels": [P, P, P, LL, P, P, I, P, P, I, P, P, P],
-    "strata_chunks_1d_levels": [P, P, P, LL, P, P, I, P, P, I, P, P, P],
+    "strata_chunks_2d_levels": _LEVELS_ARGS,
+    "strata_chunks_1d_levels": _LEVELS_ARGS,
+    "strata_chunks_2d_levels_grid": _GRID_ARGS,
+    "strata_chunks_1d_levels_grid": _GRID_ARGS,
 }
+# The other C entries: name -> (argument types, result type).
+QUERIES = {"strata_chunks_levels_blocks": ([I], I),
+           "strata_chunks_levels_clusters": ([I], I),
+           "strata_chunks_levels_cluster_blocks": ([I], I)}
 # The tracking instances of the leveled kernels (a group's Delta_max for
 # delta early stop): launched by the same wrappers when given `dmax`, and
 # counted apart.
@@ -156,11 +169,12 @@ def _fn(name: str):
                     fn.argtypes = argtypes
                     fn.restype = I
                     _fns[n] = fn
-            if hasattr(lib, "strata_chunks_levels_blocks"):
-                fn = lib.strata_chunks_levels_blocks
-                fn.argtypes = [I]
-                fn.restype = I
-                _fns["strata_chunks_levels_blocks"] = fn
+            for n, (argtypes, restype) in QUERIES.items():
+                if hasattr(lib, n):
+                    fn = getattr(lib, n)
+                    fn.argtypes = argtypes
+                    fn.restype = restype
+                    _fns[n] = fn
     return _fns[name]
 
 
@@ -177,7 +191,7 @@ def _check(tensors: dict, device) -> None:
         "recip": torch.float64, "coords": torch.float64, "upd": torch.float64,
         "sync": torch.int32, "tile": torch.int32, "block": torch.int32,
         "blk_off": torch.int32, "perm": torch.int32, "lvl_off": torch.int32,
-        "dmax": torch.float32,
+        "pred_off": torch.int32, "pred": torch.int32, "dmax": torch.float32,
     }
     for name, t in tensors.items():
         _require(t.device == device, f"{name} is on {t.device}, not {device}")
@@ -290,16 +304,21 @@ def strata_chunks_2d_stream(drift, base, planes, od, sync, eta, cpi: int, g0: in
     _chunks("strata_chunks_2d_stream", 4, drift, base, planes, od, eta, cpi, g0, cgs, sync)
 
 
-# One scratch word a device: the grid barrier's counter of the leveled
+# One scratch word a device: the grid barrier's counter of the grid-leveled
 # kernels.  It starts at 0 and every completed launch leaves its low 31 bits
 # at 0, so launches on one stream share it.
 _BARRIER: dict = {}
+# The leveled kernels' scratch a device: [ticket, done word a chunk], zero
+# at first, grown to the largest run seen; and the launch count, each
+# launch's epoch (its done words' value; never 0).  The ticket ends every
+# completed launch at 0 and a done word holds an earlier launch's epoch, so
+# launches on one stream share them.
+_FLOW: dict = {}
+_EPOCH: dict = {}
 
 
-def _levels(name: str, nplanes: int, drift, base, planes, od, eta, cpi, perm, lvl_off,
-            dmax=None) -> None:
-    tensors = dict(drift=drift, base=base, planes=planes, od=od, eta=eta, perm=perm,
-                   lvl_off=lvl_off)
+def _check_levels(nplanes: int, tensors: dict, cpi: int, dmax) -> None:
+    drift, base, planes, od = (tensors[k] for k in ("drift", "base", "planes", "od"))
     if dmax is not None:
         tensors["dmax"] = dmax
         _require(dmax.numel() == 1, "dmax is the group's one word")
@@ -309,53 +328,120 @@ def _levels(name: str, nplanes: int, drift, base, planes, od, eta, cpi, perm, lv
              "drift/base shape")
     _require(planes.shape == (nplanes, L), "planes shape")
     _require(od.dim() == 2 and od.shape[1] == 2, "od shape")
-    _require(perm.shape == (od.shape[0],), "perm has one entry a chunk")
+    _require(tensors["perm"].shape == (od.shape[0],), "perm has one entry a chunk")
+    lvl_off = tensors["lvl_off"]
     _require(lvl_off.dim() == 1 and 2 <= lvl_off.shape[0] <= od.shape[0] + 1,
              "lvl_off holds 1 to chunks levels")
-    _require(cpi > 0 and (od.shape[0] - 1) // cpi < eta.shape[0], "eta covers the chunks")
-    counter = _BARRIER.get(drift.device)
-    if counter is None:
-        counter = _BARRIER[drift.device] = torch.zeros(1, dtype=torch.int32,
-                                                       device=drift.device)
+    _require(cpi > 0 and (od.shape[0] - 1) // cpi < tensors["eta"].shape[0],
+             "eta covers the chunks")
+
+
+def _flow(device, chunks: int) -> tuple:
+    """The scratch of the leveled kernels on `device`, at least chunks + 1
+    words, and the next launch's epoch."""
+    flow = _FLOW.get(device)
+    if flow is None or flow.shape[0] < chunks + 1:
+        flow = _FLOW[device] = torch.zeros(chunks + 1, dtype=torch.int32, device=device)
+    epoch = _EPOCH.get(device, 0) % 0xFFFFFFFF + 1
+    _EPOCH[device] = epoch
+    return flow, epoch
+
+
+def _levels(name: str, nplanes: int, drift, base, planes, od, eta, cpi, perm, lvl_off,
+            pred_off, pred, dmax=None) -> None:
+    tensors = dict(drift=drift, base=base, planes=planes, od=od, eta=eta, perm=perm,
+                   lvl_off=lvl_off, pred_off=pred_off, pred=pred)
+    _check_levels(nplanes, tensors, cpi, dmax)
+    _require(pred_off.shape == (od.shape[0] + 1,) and pred.dim() == 1,
+             "pred_off has chunks + 1 offsets into pred")
+    flow, epoch = _flow(drift.device, od.shape[0])
     err = _fn(name)(
-        _ptr(drift), _ptr(base), _ptr(planes), L, _ptr(od), _ptr(eta), int(cpi), _ptr(perm),
-        _ptr(lvl_off), int(lvl_off.shape[0] - 1), _ptr(counter),
-        ctypes.c_void_p(None if dmax is None else dmax.data_ptr()), _stream(drift.device))
+        _ptr(drift), _ptr(base), _ptr(planes), drift.shape[1], _ptr(od), _ptr(eta), int(cpi),
+        _ptr(perm), _ptr(lvl_off), int(lvl_off.shape[0] - 1), _ptr(pred_off), _ptr(pred),
+        _ptr(flow), epoch, ctypes.c_void_p(None if dmax is None else dmax.data_ptr()),
+        _stream(drift.device))
     _launched(name if dmax is None else TRACKED[name], err)
 
 
-def strata_chunks_2d_levels(drift, base, planes, od, eta, cpi: int, perm, lvl_off,
-                            dmax=None):
-    """Chunk phase of one 2D merge group by conflict levels, in place on
-    `drift`: level l runs the chunks perm[lvl_off[l]:lvl_off[l+1]] at once
-    (``ops/strata_levels.py``), the levels in order.  perm (chunks,) i32
-    holds every chunk of the run; lvl_off (levels + 1,) i32 is the group's
-    row of offsets into it.  Same result as `strata_chunks_2d`.  With
-    `dmax` (a one-word f32 tensor, zero or a max so far) the tracking
-    instance also raises it to the group's max |delta| over valid pairs."""
+def strata_chunks_2d_levels(drift, base, planes, od, eta, cpi: int, perm, lvl_off, pred_off,
+                            pred, dmax=None):
+    """Chunk phase of one 2D merge group, in place on `drift`: the chunks
+    perm[lvl_off[0]:lvl_off[-1]] (``ops/strata_levels.py``: one group's
+    chunks by (level, index)), handed out in that order, each run by a
+    thread-block cluster once its predecessors pred[pred_off[j]:pred_off[j
+    + 1]] are done.  perm (chunks,) i32 and pred_off (chunks + 1,) i32 /
+    pred i32 hold every chunk of the run; lvl_off (levels + 1,) i32 is the
+    group's row of level offsets into perm.  Same result as
+    `strata_chunks_2d`.  With `dmax` (a one-word f32 tensor, zero or a max
+    so far) the tracking instance also raises it to the group's max |delta|
+    over valid pairs."""
     if drift.device.type == "cpu":
         return strata_sgd.chunks_2d_levels_plain(drift, base, planes, od, eta, cpi, perm,
                                                  lvl_off, dmax)
     _levels("strata_chunks_2d_levels", 4, drift, base, planes, od, eta, cpi, perm, lvl_off,
-            dmax)
+            pred_off, pred, dmax)
 
 
-def strata_chunks_1d_levels(drift, base, planes, od, eta, cpi: int, perm, lvl_off,
-                            dmax=None):
-    """Chunk phase of one 1D merge group by conflict levels, in place on
-    `drift`, as `strata_chunks_2d_levels` (`dmax` too).  Same result as
+def strata_chunks_1d_levels(drift, base, planes, od, eta, cpi: int, perm, lvl_off, pred_off,
+                            pred, dmax=None):
+    """Chunk phase of one 1D merge group, in place on `drift`, as
+    `strata_chunks_2d_levels` (`dmax` too).  Same result as
     `strata_chunks_1d`."""
     if drift.device.type == "cpu":
         return strata_sgd.chunks_1d_levels_plain(drift, base, planes, od, eta, cpi, perm,
                                                  lvl_off, dmax)
     _levels("strata_chunks_1d_levels", 3, drift, base, planes, od, eta, cpi, perm, lvl_off,
-            dmax)
+            pred_off, pred, dmax)
+
+
+def _levels_grid(name: str, nplanes: int, drift, base, planes, od, eta, cpi, perm,
+                 lvl_off) -> None:
+    tensors = dict(drift=drift, base=base, planes=planes, od=od, eta=eta, perm=perm,
+                   lvl_off=lvl_off)
+    _check_levels(nplanes, tensors, cpi, None)
+    counter = _BARRIER.get(drift.device)
+    if counter is None:
+        counter = _BARRIER[drift.device] = torch.zeros(1, dtype=torch.int32,
+                                                       device=drift.device)
+    err = _fn(name)(
+        _ptr(drift), _ptr(base), _ptr(planes), drift.shape[1], _ptr(od), _ptr(eta), int(cpi),
+        _ptr(perm), _ptr(lvl_off), int(lvl_off.shape[0] - 1), _ptr(counter),
+        _stream(drift.device))
+    _launched(name, err)
+
+
+def strata_chunks_2d_levels_grid(drift, base, planes, od, eta, cpi: int, perm, lvl_off):
+    """`strata_chunks_2d_levels` by its earlier design, off the main path: a
+    persistent cooperative grid of one 1024-thread block an SM, level l's
+    chunks perm[lvl_off[l]:lvl_off[l+1]] at once, a grid barrier between
+    levels.  Same result."""
+    if drift.device.type == "cpu":
+        return strata_sgd.chunks_2d_levels_plain(drift, base, planes, od, eta, cpi, perm,
+                                                 lvl_off)
+    _levels_grid("strata_chunks_2d_levels_grid", 4, drift, base, planes, od, eta, cpi, perm,
+                 lvl_off)
+
+
+def strata_chunks_1d_levels_grid(drift, base, planes, od, eta, cpi: int, perm, lvl_off):
+    """`strata_chunks_2d_levels_grid` for the 1D scheme."""
+    if drift.device.type == "cpu":
+        return strata_sgd.chunks_1d_levels_plain(drift, base, planes, od, eta, cpi, perm,
+                                                 lvl_off)
+    _levels_grid("strata_chunks_1d_levels_grid", 3, drift, base, planes, od, eta, cpi, perm,
+                 lvl_off)
 
 
 def levels_grid_blocks(one_d: bool = False) -> int:
-    """Blocks of the persistent grid of the 2D (or 1D) leveled kernel on
-    the current card."""
+    """Blocks of the persistent grid of the 2D (or 1D) grid-leveled kernel
+    on the current card."""
     return int(_fn("strata_chunks_levels_blocks")(int(bool(one_d))))
+
+
+def levels_clusters(one_d: bool = False) -> tuple:
+    """(clusters, blocks a cluster) of the 2D (or 1D) leveled kernel's grid
+    on the current card: the clusters that fit at once."""
+    return (int(_fn("strata_chunks_levels_clusters")(int(bool(one_d)))),
+            int(_fn("strata_chunks_levels_cluster_blocks")(int(bool(one_d)))))
 
 
 def strata_chunks_1d_stream(drift, base, planes, od, sync, eta, cpi: int, g0: int, cgs: int):

@@ -25,12 +25,15 @@ With delta early stop (-j, ``StrataState.run(delta)``) the chunk phase runs
 the leveled kernels' tracking instances, which also write each group's
 Delta_max (the reference's ``track`` output), and the run stops after the
 first iteration whose maximum is at most delta.
-On every route the chunk phase runs by conflict levels
-(``ops/strata_levels.py``, ``strata_chunks_2d_levels`` /
-``strata_chunks_1d_levels``), which gives the drift of the chain kernels
-(``strata_chunks_2d/1d`` and the stream kernels, which prefetch the next
-chunk as gated by the sync flags of ``ops/strata_xl.py``) bit for bit; the
-chain kernels stay as its reference, off the main path.
+On every route the chunk phase runs on the leveled kernels
+(``strata_chunks_2d_levels`` / ``strata_chunks_1d_levels``) in the
+schedule of ``ops/strata_levels.py``: the group's chunks in conflict-level
+order, each after its predecessors, which gives the drift of the chain
+kernels (``strata_chunks_2d/1d`` and the stream kernels, which prefetch the
+next chunk as gated by the sync flags of ``ops/strata_xl.py``) bit for
+bit; the chain kernels and the grid-barrier kernels
+(``strata_chunks_*_levels_grid``) stay as its reference, off the main
+path.
 
 Each phase has a plain PyTorch version here and a CUDA kernel behind the
 wrappers of ``ops/kernels.py``; the runs call the wrappers, which take
@@ -162,9 +165,9 @@ def chunks_2d_plain(drift, base, planes, od, eta, cpi: int, g0: int, cgs: int, d
 def chunks_2d_levels_plain(drift, base, planes, od, eta, cpi: int, perm, lvl_off,
                            dmax=None):
     """The chunks perm[lvl_off[0]:lvl_off[-1]] in that order, in place on
-    `drift` (`ops/strata_levels.py`: one group's levels, each level's chunks
-    slot-disjoint); the same per-chunk body as `chunks_2d_plain`, `dmax`
-    too."""
+    `drift` (`ops/strata_levels.py`: one group's chunks by (level, index),
+    the order the leveled kernels hand them out in); the same per-chunk body
+    as `chunks_2d_plain`, `dmax` too."""
     od_h = od.cpu().numpy()
     off = lvl_off.cpu().numpy()
     for gl in perm[int(off[0]):int(off[-1])].cpu().tolist():
@@ -402,6 +405,8 @@ class StrataState:
     upd: torch.Tensor      # f64 (2 or 1, E_cap) last merge's update
     perm: torch.Tensor     # i32 (chunks,) the chunks by (group, level, index)
     lvl_rows: list         # each group's i32 level offsets into perm
+    pred_off: torch.Tensor  # i32 (chunks + 1,) offsets into pred
+    pred: torch.Tensor      # i32 each chunk's predecessors (strata_levels)
     dmax: torch.Tensor     # f32 (groups,) each tracked group's Delta_max
     route: str = "resident"
     bsch: Optional[BlockSchedule] = None  # "xxl"
@@ -448,7 +453,7 @@ class StrataState:
         od = np.stack([p["o_blk"], p["d_arr"]], axis=1).astype(np.int32)
         t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
         base_t = t(base, torch.float32)
-        perm_h, lvl_off = strata_levels.chunk_levels(p)
+        perm_h, lvl_off, pred_off, pred = strata_levels.chunk_schedule(p)
         off_t = t(lvl_off, torch.int32)
         return StrataState(
             plan=p,
@@ -463,6 +468,8 @@ class StrataState:
             upd=torch.zeros((coords.shape[0], mi.ecap), dtype=torch.float64, device=device),
             perm=t(perm_h, torch.int32),
             lvl_rows=[off_t[gid, :n + 1] for gid, n in enumerate(strata_levels.depths(lvl_off))],
+            pred_off=t(pred_off, torch.int32),
+            pred=t(pred, torch.int32),
             dmax=torch.zeros(p["groups"], dtype=torch.float32, device=device),
             route=route,
             bsch=BlockSchedule.build(g, one_d, device) if route == "xxl" else None,
@@ -470,13 +477,13 @@ class StrataState:
         )
 
     def run_group(self, gid: int, track: bool = False) -> None:
-        """One merge group: the chunk phase by conflict levels (with
+        """One merge group: the chunk phase on the leveled kernel (with
         `track`, the tracking instance, into dmax[gid]), then the route's
         consensus merge."""
         chunks = kernels.strata_chunks_1d_levels if self.one_d else kernels.strata_chunks_2d_levels
         kw = dict(dmax=self.dmax[gid:gid + 1]) if track else {}
         chunks(self.drift, self.base, self.planes, self.od, self.eta, self.plan["cpi"],
-               self.perm, self.lvl_rows[gid], **kw)
+               self.perm, self.lvl_rows[gid], self.pred_off, self.pred, **kw)
         if self.route == "xxl":
             kernels.strata_merge_sum_blocked(self.drift, self.mi, self.bsch,
                                              self.coords, self.upd)

@@ -15,8 +15,10 @@ the ascending-order loop merge_sum_ordered_plain exactly at every block
 size, and the blocked sum equals it too, at every node-block size.  The
 sharded run at two simulated devices on the card lies within 1e-9 of the
 same run on the CPU, and a one-rank NCCL group equals the one-device
-simulation exactly.  The leveled kernels' tracking instances (delta early
-stop) give the untracked drift exactly and the plain versions' Delta_max
+simulation exactly.  The leveled kernels (a thread-block cluster a chunk,
+each chunk after its predecessors) equal the grid-barrier kernels
+strata_chunks_*_levels_grid exactly too.  The leveled kernels' tracking
+instances (delta early stop) give the untracked drift exactly and the plain versions' Delta_max
 exactly, and tracked runs on the card stop where the CPU's stop; a batched
 step on the card lies within 1e-6 of the scale of the same words' step on
 the CPU (index_add_ adds by atomics there), and so do the multi-device
@@ -329,22 +331,24 @@ def test_leveled_chunks_equal_chain_groups(cuda, long_graph, route):
     before = dict(kernels.LAUNCHES)
     for gid in range(p["groups"]):
         tail = (st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
-        d_l, d_c, d_s = st.drift.clone(), st.drift.clone(), st.drift.clone()
+        d_l, d_c, d_s, d_g = (st.drift.clone() for _ in range(4))
         kernels.strata_chunks_2d_levels(d_l, st.base, st.planes, st.od, st.eta, p["cpi"],
-                                        st.perm, st.lvl_rows[gid])
+                                        st.perm, st.lvl_rows[gid], st.pred_off, st.pred)
+        kernels.strata_chunks_2d_levels_grid(d_g, st.base, st.planes, st.od, st.eta, p["cpi"],
+                                             st.perm, st.lvl_rows[gid])
         kernels.strata_chunks_2d(d_c, st.base, st.planes, st.od, *tail)
         if route != "resident":
             kernels.strata_chunks_2d_stream(d_s, st.base, st.planes, st.od, sync, *tail)
             torch.cuda.synchronize()
             assert torch.equal(d_s, d_c)
         torch.cuda.synchronize()
-        assert torch.equal(d_l, d_c)
+        assert torch.equal(d_l, d_c) and torch.equal(d_g, d_c)
         assert float(d_c.abs().max()) > 0
         st.drift = d_l
         kernels.strata_merge_sum(st.drift, st.mi, st.coords, st.upd)
         kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)
-    assert kernels.LAUNCHES["strata_chunks_2d_levels"] - before["strata_chunks_2d_levels"] \
-        == p["groups"]
+    for name in ("strata_chunks_2d_levels", "strata_chunks_2d_levels_grid"):
+        assert kernels.LAUNCHES[name] - before[name] == p["groups"]
 
 
 @pytest.mark.parametrize("route", ["resident", "xl", "xxl"])
@@ -356,7 +360,7 @@ def test_leveled_runs_equal_chain_runs(cuda, long_graph, route, monkeypatch):
     run = lambda: strata_sgd.path_sgd_2d_strata(long_graph, c0, cfg, cuda, route).cpu().numpy()
     leveled = run()
 
-    def chain(drift, base, planes, od, eta, cpi, perm, lvl_off):
+    def chain(drift, base, planes, od, eta, cpi, perm, lvl_off, pred_off, pred):
         # the group's chunks are the range perm[lvl_off[0]:lvl_off[-1]] covers
         g0, g1 = int(lvl_off[0]), int(lvl_off[-1])
         kernels.strata_chunks_2d(drift, base, planes, od, eta, cpi, g0, g1 - g0)
@@ -388,15 +392,25 @@ def test_levels_wrapper_rejects_bad_arguments(cuda, long_graph):
     p = st.plan
     row = st.lvl_rows[0]
     args = (st.drift, st.base, st.planes, st.od, st.eta, p["cpi"])
+    preds = (st.pred_off, st.pred)
     for bad_perm in (st.perm.cpu(), st.perm.long(), st.perm[:-1], st.perm[::2]):
         with pytest.raises(ValueError):
-            kernels.strata_chunks_2d_levels(*args, bad_perm, row)
+            kernels.strata_chunks_2d_levels(*args, bad_perm, row, *preds)
+        with pytest.raises(ValueError):
+            kernels.strata_chunks_2d_levels_grid(*args, bad_perm, row)
     for bad_off in (row.cpu(), row.long(), row[:1], row[None, :].expand(2, -1)):
         with pytest.raises(ValueError):
-            kernels.strata_chunks_2d_levels(*args, st.perm, bad_off)
+            kernels.strata_chunks_2d_levels(*args, st.perm, bad_off, *preds)
+        with pytest.raises(ValueError):
+            kernels.strata_chunks_2d_levels_grid(*args, st.perm, bad_off)
+    for bad_preds in ((st.pred_off[:-1], st.pred), (st.pred_off.long(), st.pred),
+                      (st.pred_off, st.pred.cpu()), (st.pred_off, st.pred[None, :]),
+                      (st.pred_off[::2], st.pred)):
+        with pytest.raises(ValueError):
+            kernels.strata_chunks_2d_levels(*args, st.perm, row, *bad_preds)
     with pytest.raises(ValueError):
         kernels.strata_chunks_2d_levels(st.drift, st.base, st.planes, st.od, st.eta[:1],
-                                        p["cpi"] // 2, st.perm, row)
+                                        p["cpi"] // 2, st.perm, row, *preds)
     with pytest.raises(ValueError):
         kernels.strata_merge_sum(st.drift, dataclasses.replace(st.mi, block_eps=3), st.coords,
                                  st.upd)
@@ -423,13 +437,15 @@ def test_leveled_1d_chunks_equal_chain_groups(cuda, long_graph, route):
     before = dict(kernels.LAUNCHES)
     for gid in range(p["groups"]):
         tail = (st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
-        d_l, d_c, d_s = st.drift.clone(), st.drift.clone(), st.drift.clone()
+        d_l, d_c, d_s, d_g = (st.drift.clone() for _ in range(4))
         kernels.strata_chunks_1d_levels(d_l, st.base, st.planes, st.od, st.eta, p["cpi"],
-                                        st.perm, st.lvl_rows[gid])
+                                        st.perm, st.lvl_rows[gid], st.pred_off, st.pred)
+        kernels.strata_chunks_1d_levels_grid(d_g, st.base, st.planes, st.od, st.eta, p["cpi"],
+                                             st.perm, st.lvl_rows[gid])
         kernels.strata_chunks_1d(d_c, st.base, st.planes, st.od, *tail)
         kernels.strata_chunks_1d_stream(d_s, st.base, st.planes, st.od, sync, *tail)
         torch.cuda.synchronize()
-        assert torch.equal(d_l, d_c) and torch.equal(d_s, d_c)
+        assert torch.equal(d_l, d_c) and torch.equal(d_s, d_c) and torch.equal(d_g, d_c)
         assert float(d_c.abs().max()) > 0
         st.drift = d_l
         if route == "xxl":
@@ -437,10 +453,13 @@ def test_leveled_1d_chunks_equal_chain_groups(cuda, long_graph, route):
         else:
             kernels.strata_merge_sum(st.drift, st.mi, st.coords, st.upd)
         kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)
-    assert kernels.LAUNCHES["strata_chunks_1d_levels"] - before["strata_chunks_1d_levels"] \
-        == p["groups"]
-    assert kernels.levels_grid_blocks(one_d=True) >= torch.cuda.get_device_properties(
-        cuda).multi_processor_count
+    for name in ("strata_chunks_1d_levels", "strata_chunks_1d_levels_grid"):
+        assert kernels.LAUNCHES[name] - before[name] == p["groups"]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert kernels.levels_grid_blocks(one_d=True) >= sms
+    for one_d in (True, False):  # the leveled kernels' clusters fill the card
+        clusters, blocks = kernels.levels_clusters(one_d)
+        assert clusters >= 1 and clusters * blocks >= sms
 
 
 @pytest.mark.parametrize("route", ["resident", "xl", "xxl"])
@@ -452,7 +471,7 @@ def test_leveled_1d_runs_equal_chain_runs(cuda, long_graph, route, monkeypatch):
                                                 route).cpu().numpy()
     leveled = run()
 
-    def chain(drift, base, planes, od, eta, cpi, perm, lvl_off):
+    def chain(drift, base, planes, od, eta, cpi, perm, lvl_off, pred_off, pred):
         g0, g1 = int(lvl_off[0]), int(lvl_off[-1])
         kernels.strata_chunks_1d(drift, base, planes, od, eta, cpi, g0, g1 - g0)
 
@@ -485,18 +504,45 @@ def test_levels_1d_wrapper_rejects_bad_arguments(cuda, long_graph):
     p = st.plan
     row = st.lvl_rows[0]
     args = (st.drift, st.base, st.planes, st.od, st.eta, p["cpi"])
+    preds = (st.pred_off, st.pred)
     for bad_perm in (st.perm.cpu(), st.perm.long(), st.perm[:-1]):
         with pytest.raises(ValueError):
-            kernels.strata_chunks_1d_levels(*args, bad_perm, row)
+            kernels.strata_chunks_1d_levels(*args, bad_perm, row, *preds)
+        with pytest.raises(ValueError):
+            kernels.strata_chunks_1d_levels_grid(*args, bad_perm, row)
     for bad_off in (row.cpu(), row[:1]):
         with pytest.raises(ValueError):
-            kernels.strata_chunks_1d_levels(*args, st.perm, bad_off)
+            kernels.strata_chunks_1d_levels(*args, st.perm, bad_off, *preds)
+    with pytest.raises(ValueError):
+        kernels.strata_chunks_1d_levels(*args, st.perm, row, st.pred_off[1:], st.pred)
     st2 = _level_state(long_graph, cuda, "resident")  # 2D planes
     with pytest.raises(ValueError):
         kernels.strata_chunks_1d_levels(st2.drift, st2.base, st2.planes, st2.od, st2.eta,
-                                        st2.plan["cpi"], st2.perm, st2.lvl_rows[0])
+                                        st2.plan["cpi"], st2.perm, st2.lvl_rows[0],
+                                        st2.pred_off, st2.pred)
     with pytest.raises(ValueError):
-        kernels.strata_chunks_2d_levels(*args, st.perm, row)
+        kernels.strata_chunks_1d_levels_grid(st2.drift, st2.base, st2.planes, st2.od, st2.eta,
+                                             st2.plan["cpi"], st2.perm, st2.lvl_rows[0])
+    with pytest.raises(ValueError):
+        kernels.strata_chunks_2d_levels(*args, st.perm, row, *preds)
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+def test_refused_levels_launch_raises(cuda, long_graph, one_d, monkeypatch):
+    """A launch the runtime refuses (here: an error code from the C
+    entry, as a refused cluster launch returns one) raises, counted; no
+    plain version runs in its place."""
+    st = (_level_state_1d if one_d else _level_state)(long_graph, cuda, "resident")
+    name = "strata_chunks_1d_levels" if one_d else "strata_chunks_2d_levels"
+    plain = "chunks_1d_levels_plain" if one_d else "chunks_2d_levels_plain"
+    monkeypatch.setattr(kernels, "_fn", lambda n: lambda *a: 801)  # cudaErrorNotSupported
+    monkeypatch.setattr(strata_sgd, plain, lambda *a, **kw: pytest.fail("plain version ran"))
+    before = kernels.LAUNCHES[name]
+    drift = st.drift.clone()
+    with pytest.raises(RuntimeError, match="CUDA error 801"):
+        getattr(kernels, name)(drift, st.base, st.planes, st.od, st.eta, st.plan["cpi"],
+                               st.perm, st.lvl_rows[0], st.pred_off, st.pred)
+    assert kernels.LAUNCHES[name] == before + 1 and not drift.any()
 
 
 def test_blocked_sum_rejects_bad_arguments(cuda, wide_graph):
@@ -630,8 +676,8 @@ def test_tracked_levels_equal_untracked_and_plain(cuda, long_graph, one_d, route
     for gid in range(p["groups"]):
         args = (st.base, st.planes, st.od, st.eta, p["cpi"], st.perm, st.lvl_rows[gid])
         d_u, d_t, d_p = st.drift.clone(), st.drift.clone(), st.drift.clone()
-        levels(d_u, *args)
-        levels(d_t, *args, dmax=st.dmax[gid:gid + 1])
+        levels(d_u, *args, st.pred_off, st.pred)
+        levels(d_t, *args, st.pred_off, st.pred, dmax=st.dmax[gid:gid + 1])
         w = torch.zeros(1, device=cuda)
         plain(d_p, *args, dmax=w)
         torch.cuda.synchronize()
@@ -682,7 +728,7 @@ def test_delta_runs_on_card_equal_cpu(cuda, long_graph, one_d):
 def test_tracked_wrapper_rejects_bad_dmax(cuda, long_graph):
     st = _state(long_graph, False, cuda)
     args = (st.drift.clone(), st.base, st.planes, st.od, st.eta, st.plan["cpi"], st.perm,
-            st.lvl_rows[0])
+            st.lvl_rows[0], st.pred_off, st.pred)
     for bad in (st.dmax, st.dmax[:1].double(), torch.zeros(1)):
         with pytest.raises(ValueError):
             kernels.strata_chunks_2d_levels(*args, dmax=bad)

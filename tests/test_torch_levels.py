@@ -12,6 +12,17 @@ leveled plain chunk phases, 2D and 1D, on the CPU.
   (a per-chunk loop) exactly.
 - Running a group's chunks in level order, or in reversed order within
   each level, gives the chain's drift exactly (torch.equal).
+- The predecessors of `chunk_schedule`: each chunk's are exactly the last
+  earlier chunk of its group on each block of its footprint (against a
+  plain loop), they come before it in perm, and every earlier chunk that
+  shares a slot with a chunk is among its ancestors, so a kernel that runs
+  each chunk after its predecessors orders every conflicting pair.
+- `chunk_schedule` (in C++, native/src/strata_schedule.cpp)
+  equals `chunk_schedule_numpy` array for array, and a state built
+  without the C++ library carries the same schedule.
+- Running a group's chunks in perm order, or in a seeded random order that
+  puts every chunk after its predecessors, gives the chain's drift exactly
+  (torch.equal), 2D and 1D.
 - The leveled 2D and 1D runs stay within the stated tolerances of
   odgi_tpu's exact twins path_sgd_2d_strata_xla / path_sgd_1d_strata_xla on
   every route: 1e-6 of the coordinate scale after short runs, 1e-4 after
@@ -28,6 +39,7 @@ from odgi_tpu.ops import pallas_sgd as ps
 from odgi_tpu.ops import sgd as j_sgd
 from tools.bigscale_bench import synth_graph
 
+from odgi_tpu_torch import native
 from odgi_tpu_torch.convert import graph_from_arrays, graph_to_arrays
 from odgi_tpu_torch.ops import kernels, sgd, strata_levels, strata_plan, strata_sgd
 
@@ -305,3 +317,119 @@ def test_leveled_default_schedule_1d_matches_twin(graph_cache, route):
     port = strata_sgd.path_sgd_1d_strata(gt, sgd.derive_config_1d(gt), None, "cpu",
                                          route=route).numpy()
     assert np.abs(port - twin).max() / (np.abs(twin).max() + 1) <= DEFAULT_TOL
+
+
+def _conflicts(o, d, i, j):
+    """Whether chunks i and j (slot starts o, jumps d) share a slot."""
+    inter = lambda x0, y0: (x0 < y0 + CHUNK) & (y0 < x0 + CHUNK)
+    return bool(inter(o[i], o[j]) | inter(o[i], o[j] + d[j]) | inter(o[i] + d[i], o[j])
+                | inter(o[i] + d[i], o[j] + d[j]))
+
+
+def _assert_valid_preds(p):
+    perm, lvl_off, pred_off, pred = strata_levels.chunk_schedule(p)
+    perm_p, lvl_off_p, preds_p = strata_levels.chunk_schedule_plain(p)
+    np.testing.assert_array_equal(perm, perm_p)
+    np.testing.assert_array_equal(lvl_off, lvl_off_p)
+    groups, cgs = p["groups"], p["cgs"]
+    assert pred_off.dtype == np.int32 and pred.dtype == np.int32
+    assert pred_off.shape == (groups * cgs + 1,) and pred_off[0] == 0
+    assert pred_off[-1] == len(pred) and (np.diff(pred_off) >= 0).all()
+    o = p["o_blk"].astype(np.int64) * LANE
+    d = p["d_arr"].astype(np.int64)
+    lvl = _levels_of(p, perm, lvl_off)
+    where = np.empty_like(perm)
+    where[perm] = np.arange(len(perm))
+    for g in range(groups):
+        anc = {}
+        for j in range(g * cgs, (g + 1) * cgs):
+            mine = pred[pred_off[j]:pred_off[j + 1]].tolist()
+            # exactly the last earlier chunk on each footprint block
+            assert sorted(set(mine)) == preds_p[j]
+            assert all(g * cgs <= q < j and where[q] < where[j] for q in mine)
+            # levels: 1 + the highest level of the predecessors
+            assert lvl[j] == 1 + max((lvl[q] for q in mine), default=0)
+            anc[j] = set(mine).union(*(anc[q] for q in mine))
+            for i in range(g * cgs, j):
+                if _conflicts(o, d, i, j):
+                    assert i in anc[j]
+
+
+@pytest.mark.parametrize("one_d", [False, True], ids=["2d", "1d"])
+@pytest.mark.parametrize("name,iter_max", PLANS, ids=PLAN_IDS)
+def test_predecessors_order_every_conflict(graph_cache, name, iter_max, one_d):
+    _, _, p = _plan(_graph(graph_cache, name), iter_max, name, one_d=one_d)
+    _assert_valid_preds(p)
+
+
+def _random_topological(perm, pred_off, pred, g0, cgs, rng):
+    """The group's chunks in a random order that puts each after its
+    predecessors: a random ready chunk at a time."""
+    left = {j: set(pred[pred_off[j]:pred_off[j + 1]].tolist()) for j in perm[g0:g0 + cgs]}
+    out = []
+    while left:
+        ready = sorted(j for j, ps in left.items() if not ps)
+        j = ready[int(rng.integers(len(ready)))]
+        out.append(j)
+        del left[j]
+        for ps in left.values():
+            ps.discard(j)
+    return out
+
+
+@pytest.mark.parametrize("order", ["perm", "random"])
+@pytest.mark.parametrize("one_d", [False, True], ids=["2d", "1d"])
+@pytest.mark.parametrize("name", ["short", "synth"])
+def test_schedule_orders_equal_chain(graph_cache, name, one_d, order):
+    gj = _graph(graph_cache, name)
+    gt, cfg, _ = _plan(gj, 2, name, one_d=one_d)
+    init = gt.node_offset.astype(np.float32) if one_d else j_init_layout(gj, "d")
+    st = strata_sgd.StrataState.build(gt, cfg, init, one_d, torch.device("cpu"))
+    p = st.plan
+    perm_h, lvl_off, pred_off, pred = strata_levels.chunk_schedule(p)
+    assert torch.equal(st.perm, torch.from_numpy(perm_h))
+    assert torch.equal(st.pred_off, torch.from_numpy(pred_off))
+    assert torch.equal(st.pred, torch.from_numpy(pred))
+    levels_plain = strata_sgd.chunks_1d_levels_plain if one_d else strata_sgd.chunks_2d_levels_plain
+    chain = strata_sgd.chunks_1d_plain if one_d else strata_sgd.chunks_2d_plain
+    rng = np.random.default_rng(17)
+    for gid in range(p["groups"]):
+        g0, cgs = gid * p["cgs"], p["cgs"]
+        if order == "perm":
+            perm = st.perm
+        else:
+            perm = st.perm.clone()
+            perm[g0:g0 + cgs] = torch.as_tensor(
+                _random_topological(perm_h, pred_off, pred, g0, cgs, rng))
+            assert not torch.equal(perm, st.perm) or cgs == 1 or name == "short"
+        row = torch.tensor([g0, g0 + cgs], dtype=torch.int32)
+        d_s, d_c = st.drift.clone(), st.drift.clone()
+        levels_plain(d_s, st.base, st.planes, st.od, st.eta, p["cpi"], perm, row)
+        chain(d_c, st.base, st.planes, st.od, st.eta, p["cpi"], g0, cgs)
+        assert torch.equal(d_s, d_c)
+        assert float(d_c.abs().max()) > 0
+        st.drift = d_c
+        kernels.strata_merge_sum(st.drift, st.mi, st.coords, st.upd)
+        kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)
+
+
+@pytest.mark.parametrize("one_d", [False, True], ids=["2d", "1d"])
+@pytest.mark.parametrize("name,iter_max", PLANS, ids=PLAN_IDS)
+def test_native_schedule_equals_numpy(graph_cache, name, iter_max, one_d):
+    _, _, p = _plan(_graph(graph_cache, name), iter_max, name, one_d=one_d)
+    assert native.schedule_lib() is not None, native._schedule["error"]
+    got, want = strata_levels.chunk_schedule(p), strata_levels.chunk_schedule_numpy(p)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_state_without_native_schedule(graph_cache, monkeypatch):
+    gj = _graph(graph_cache, "synth")
+    gt, cfg, _ = _plan(gj, 2, "synth")
+    c0 = j_init_layout(gj, "d")
+    st = strata_sgd.StrataState.build(gt, cfg, c0, False, torch.device("cpu"))
+    monkeypatch.setattr(native, "schedule_lib", lambda: None)
+    st_np = strata_sgd.StrataState.build(gt, cfg, c0, False, torch.device("cpu"))
+    for f in ("perm", "pred_off", "pred"):
+        assert torch.equal(getattr(st, f), getattr(st_np, f))
+    assert all(torch.equal(a, b) for a, b in zip(st.lvl_rows, st_np.lvl_rows))
