@@ -48,12 +48,10 @@ Phases, each printing one line or more:
      command's wall and its graph reads and writes timed:
      the sorted graph bit-equal to phase 4's sort_pipeline("Ygs"), the
      .lay bytes equal to phase 4's, the printed nt-distance and stress
-     equal to phase 4's to the printed digit, the --metrics line, and
-     each trace's device-busy share (the union of its CUDA kernels over
-     the profiled window; a trace without a kernel fails, and the share
-     is null unless the trace holds each strata kernel as often as the
-     wrappers counted it for that command) beside the event-sum idle
-     shares; then layout
+     equal to phase 4's to the printed digit, the --metrics line, each
+     trace's kernels and program spans (a trace without a kernel, or
+     without the program's strata.build and strata.run spans, fails) and
+     the event-sum idle shares; then layout
      --metrics on the 1,000-step graph (batched: one record an iteration);
   5. the stream kernels and the blocked sum against their plain versions
      and against the resident kernels, the broadcast against its plain
@@ -1865,14 +1863,11 @@ def missing_edges(g) -> int:
     return int((~np.isin(a * n2 + b, edges)).sum())
 
 
-def trace_busy(trace_dir: str, launches: dict) -> dict:
-    """From the torch.profiler trace in `trace_dir`: the union of its CUDA
-    kernel intervals over the profiled window (the span of all its
-    events).  The spin kernels KernelTimes queues are left out of the
-    union and counted apart.  The share stands only where the trace holds
-    every strata kernel the wrappers counted for that command
-    (`launches`, a tracked instance under its kernel's name): else CUPTI
-    dropped records and busy_share is None."""
+def trace_spans(trace_dir: str) -> dict:
+    """From the torch.profiler trace in `trace_dir`: its CUDA kernels (the
+    spin kernels KernelTimes queues counted apart) and the program's spans
+    by name (``utils/metrics.py``).  A trace without a kernel, or without
+    the program's ``strata.build`` and ``strata.run``, fails."""
     files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
     if len(files) != 1:
         fail(f"{trace_dir}: {len(files)} traces")
@@ -1883,27 +1878,12 @@ def trace_busy(trace_dir: str, launches: dict) -> dict:
     spin = sum("spin" in e.get("name", "").lower() for e in kern)
     if len(kern) == spin:
         fail(f"{trace_dir}: the --profile trace holds no CUDA kernel")
-    lo = min(e["ts"] for e in events)
-    hi = max(e["ts"] + e["dur"] for e in events)
-    busy, end = 0.0, lo
-    for ts, dur in sorted((e["ts"], e["dur"]) for e in kern
-                          if "spin" not in e.get("name", "").lower()):
-        busy += max(0.0, ts + dur - max(ts, end))
-        end = max(end, ts + dur)
-    names = collections.Counter(e.get("name", "")[:60] for e in kern)
-    traced = {n: sum(bool(re.search(f"::{n}_kernel[<(]", e.get("name", ""))) for e in kern)
-              for n in kernels.SIGNATURES}
-    counted = {n: launches[n] + launches.get(kernels.TRACKED.get(n), 0)
-               for n in kernels.SIGNATURES}
-    complete = traced == counted
+    spans = collections.Counter(e["name"] for e in events if e.get("cat") == "user_annotation")
+    missing = [n for n in ("strata.build", "strata.run") if not spans[n]]
+    if missing:
+        fail(f"{trace_dir}: the --profile trace lacks the program's spans {missing}")
     return dict(trace_bytes=os.path.getsize(files[0]), events=len(events),
-                kernels=len(kern) - spin, spin_kernels=spin, kernels_by_name=dict(names),
-                strata_traced={n: c for n, c in traced.items() if c or counted[n]},
-                strata_launched={n: c for n, c in counted.items() if c or traced[n]},
-                trace_complete=complete,
-                memcpy=sum(e.get("cat") == "gpu_memcpy" for e in events),
-                window_s=(hi - lo) / 1e6, kernel_union_s=busy / 1e6,
-                busy_share=busy / (hi - lo) if complete else None)
+                kernels=len(kern) - spin, spin_kernels=spin, spans=dict(spans))
 
 
 def read_jsonl(path: str) -> list:
@@ -1971,18 +1951,14 @@ def phase_cli(gfa_path: str, tmp: str, smoke: dict, sm: dict, dev, rec: Record) 
             # some path steps lack their edge: validate reports each one
             missing = missing_edges(sm["g"])
             _, problems = cli(["validate", "-i", f["otg"]], walls, 1 if missing else 0)
-            cmd_launches = {}
-            for k, argv in (("sort", ["sort", "-i", f["otg"], "-o", f["sorted"], "-p", "Ygs",
-                                      "--metrics", f["jsonl"], "--profile", f["trace_sort"]]),
-                            ("layout", ["layout", "-i", f["sorted"], "-o", f["lay"],
-                                        "--profile", f["trace_layout"]])):
-                before = dict(kernels.LAUNCHES)
-                cli(argv, walls)
-                cmd_launches[k] = {n: c - before[n] for n, c in kernels.LAUNCHES.items()}
+            cli(["sort", "-i", f["otg"], "-o", f["sorted"], "-p", "Ygs",
+                 "--metrics", f["jsonl"], "--profile", f["trace_sort"]], walls)
+            cli(["layout", "-i", f["sorted"], "-o", f["lay"], "--profile", f["trace_layout"]],
+                walls)
             printed["S_s"] = cli(["stats", "-i", f["sorted"], "-S", "-s"], walls)[0]
             printed["s_c"] = cli(["stats", "-i", f["sorted"], "-s", "-c", f["lay"]], walls)[0]
             return dict(build_parser=parser, validate_problems=len(problems.splitlines()),
-                        missing_edges=missing, cmd_launches=cmd_launches)
+                        missing_edges=missing)
 
         out.update(counted("cli", rec, run))
     routes = {"1d": strata_route.graph_route(sm["g"], derive_config_1d(sm["g"]), True),
@@ -2002,8 +1978,7 @@ def phase_cli(gfa_path: str, tmp: str, smoke: dict, sm: dict, dev, rec: Record) 
     out["stress_printed"] = stats_all_paths(printed["s_c"], 2)
     want = {"nt": f"{smoke['nt_after']:.6g}", "stress": f"{smoke['stress_after']:.6g}"}
     out["metrics"] = read_jsonl(f["jsonl"])
-    cmd_launches = out.pop("cmd_launches")
-    out["trace"] = {k: trace_busy(f[f"trace_{k}"], cmd_launches[k]) for k in ("sort", "layout")}
+    out["trace"] = {k: trace_spans(f[f"trace_{k}"]) for k in ("sort", "layout")}
     dev_s = smoke["sgd_device_s"]
     sgd_walls = dict(sort=gio.seconds["sort_pipeline"][0], layout=gio.seconds["layout_graph"][0])
     out["idle_share_event_sums"] = dict(
@@ -2011,7 +1986,6 @@ def phase_cli(gfa_path: str, tmp: str, smoke: dict, sm: dict, dev, rec: Record) 
                     layout=1 - dev_s["2d"] / smoke["layout_s"]),
         cli_profiled=dict(sort=1 - out["sgd_device_s"]["1d"] / sgd_walls["sort"],
                           layout=1 - out["sgd_device_s"]["2d"] / sgd_walls["layout"]))
-    out["busy_share_trace"] = {k: v["busy_share"] for k, v in out["trace"].items()}
     out["phase4_walls_s"] = dict(sort_Ygs=smoke["sort_Ygs_s"], layout=smoke["layout_s"],
                                  parse=smoke["parse_s"])
     say("main_path", path="cli", **out, printed=printed, phase4_printed=want)

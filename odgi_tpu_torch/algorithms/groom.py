@@ -14,6 +14,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ..core.graph import GraphTensors
+from ..utils.metrics import span
 from .topological import head_nodes
 
 
@@ -65,6 +66,7 @@ def groom(g: GraphTensors, target_paths: Optional[Sequence[int]] = None) -> np.n
     return flipped
 
 
+@span("sort.groom")
 def apply_groom(
     g: GraphTensors, target_paths: Optional[Sequence[int]] = None
 ) -> GraphTensors:

@@ -13,6 +13,7 @@ import numpy as np
 from ..core.graph import GraphTensors
 from ..device import resolve_device
 from ..ops.sgd import SgdConfig, path_sgd_2d
+from ..utils.metrics import span
 from .components import weak_component_ids
 
 
@@ -38,6 +39,7 @@ def hilbert_d2xy(n: int, d: int) -> Tuple[int, int]:
     return x, y
 
 
+@span("layout.init")
 def init_layout(g: GraphTensors, mode: str = "d", seed: int = 9399220) -> np.ndarray:
     """Initial (2N, 2) coordinates, from numpy's default_rng(seed), so every
     mode equals the JAX package's byte for byte.  Modes: 'd' (the default:
@@ -71,6 +73,7 @@ def init_layout(g: GraphTensors, mode: str = "d", seed: int = 9399220) -> np.nda
     return coords
 
 
+@span("layout.pack")
 def pack_components(g: GraphTensors, coords: np.ndarray, border: float = 1000.0) -> np.ndarray:
     """Stack weakly-connected components vertically with a border."""
     comp = weak_component_ids(g)

@@ -16,6 +16,7 @@ from ..core.graph import GraphTensors, handle_rank
 from ..device import resolve_device
 from ..io.og_compat import save_og
 from ..ops.sgd import SgdConfig, derive_config_1d, path_sgd_1d
+from ..utils.metrics import span
 from ..utils.progress import ProgressMeter
 from .components import weak_component_ids
 from .graph_misc import eades_order, linear_sgd_order
@@ -29,6 +30,7 @@ from .topological import topological_order
 CODES = "Ygsnfrbzwcdel"
 
 
+@span("sort.order")
 def order_from_x(g: GraphTensors, X) -> np.ndarray:
     """(component, X, rank) lexsort of a 1D embedding."""
     if isinstance(X, torch.Tensor):

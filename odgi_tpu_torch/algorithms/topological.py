@@ -14,6 +14,7 @@ from typing import List, Set
 import numpy as np
 
 from ..core.graph import GraphTensors
+from ..utils.metrics import span
 
 
 def head_nodes(g: GraphTensors) -> np.ndarray:
@@ -65,6 +66,7 @@ def _edge_key(a: int, b: int) -> tuple:
     return (fa, fb) if (fa, fb) < (a, b) else (a, b)
 
 
+@span("sort.topological_order")
 def topological_order(
     g: GraphTensors, use_heads: bool = True, use_tails: bool = False
 ) -> np.ndarray:

@@ -835,7 +835,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics", default=None, metavar="FILE",
                    help="write JSONL run metrics (see utils/metrics.py)")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler trace of the optimization")
+                   help="write a torch.profiler trace of the optimization, with the "
+                        "program's spans (PERF.md section 3 lists them)")
     p.set_defaults(fn=cmd_sort)
 
     p = sub.add_parser("layout", help="2D PG-SGD layout")
@@ -868,7 +869,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write JSONL per-iteration metrics (a per-iteration "
                         "callback: the batched path)")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler trace of the optimization")
+                   help="write a torch.profiler trace of the optimization, with the "
+                        "program's spans (PERF.md section 3 lists them)")
     p.set_defaults(fn=cmd_layout)
 
     p = sub.add_parser("paths", help="path information")

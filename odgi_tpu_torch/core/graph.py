@@ -23,6 +23,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from ..utils.metrics import span
+
 # ---------------------------------------------------------------------------
 # Handle packing (libhandlegraph number_bool_packing convention)
 # ---------------------------------------------------------------------------
@@ -238,6 +240,7 @@ class GraphTensors:
 
     # ---- functional transforms -------------------------------------------
 
+    @span("graph.apply_ordering")
     def apply_ordering(
         self, order: np.ndarray, compact_ids: bool = True
     ) -> "GraphTensors":

@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 
 from ..core.graph import GraphTensors
+from ..utils.metrics import TOTALS, timed
 
 SRC = Path(__file__).resolve().parent / "src" / "gfa_parse.cpp"
 SCHEDULE_SRC = SRC.with_name("strata_schedule.cpp")
@@ -66,14 +67,18 @@ def library_path(src: Path = SRC) -> Path:
     return BUILD_DIR / f"{src.stem}_{key.hexdigest()[:16]}.so"
 
 
+@timed("native.build")
 def build(src: Path = SRC) -> Path:
     """Compile `src` (by default the parser) unless this key is built
-    already; raises RuntimeError when g++ is missing or fails."""
+    already; raises RuntimeError when g++ is missing or fails.  Timed as
+    ``native.build`` (``utils.metrics.TOTALS``, the g++ runs as its
+    compiles), as are the first loads of `get_lib` and `schedule_lib`."""
     so = library_path(src)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    TOTALS["native.build"]["compiles"] += 1
     try:
         proc = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(src)],
                               capture_output=True, text=True, timeout=300)
@@ -91,16 +96,17 @@ def get_lib() -> Optional[ctypes.CDLL]:
     with _lock:
         if not _state["tried"]:
             _state["tried"] = True
-            try:
-                lib = ctypes.CDLL(str(build()))
-            except (RuntimeError, OSError) as exc:
-                _state["error"] = str(exc)
-            else:
-                lib.odgi_gfa_parse.restype = ctypes.POINTER(_GfaResult)
-                lib.odgi_gfa_parse.argtypes = [ctypes.c_char_p]
-                lib.odgi_gfa_free.restype = None
-                lib.odgi_gfa_free.argtypes = [ctypes.POINTER(_GfaResult)]
-                _state["lib"] = lib
+            with timed("native.build"):
+                try:
+                    lib = ctypes.CDLL(str(build()))
+                except (RuntimeError, OSError) as exc:
+                    _state["error"] = str(exc)
+                else:
+                    lib.odgi_gfa_parse.restype = ctypes.POINTER(_GfaResult)
+                    lib.odgi_gfa_parse.argtypes = [ctypes.c_char_p]
+                    lib.odgi_gfa_free.restype = None
+                    lib.odgi_gfa_free.argtypes = [ctypes.POINTER(_GfaResult)]
+                    _state["lib"] = lib
         return _state["lib"]
 
 
@@ -115,16 +121,17 @@ def schedule_lib() -> Optional[ctypes.CDLL]:
     with _lock:
         if not _schedule["tried"]:
             _schedule["tried"] = True
-            try:
-                lib = ctypes.CDLL(str(build(SCHEDULE_SRC)))
-            except (RuntimeError, OSError) as exc:
-                _schedule["error"] = str(exc)
-            else:
-                p = ctypes.c_void_p
-                lib.odgi_strata_schedule.restype = ctypes.c_int64
-                lib.odgi_strata_schedule.argtypes = [ctypes.c_int64, ctypes.c_int64, p, p, p, p,
-                                                     p, ctypes.c_int64]
-                _schedule["lib"] = lib
+            with timed("native.build"):
+                try:
+                    lib = ctypes.CDLL(str(build(SCHEDULE_SRC)))
+                except (RuntimeError, OSError) as exc:
+                    _schedule["error"] = str(exc)
+                else:
+                    p = ctypes.c_void_p
+                    lib.odgi_strata_schedule.restype = ctypes.c_int64
+                    lib.odgi_strata_schedule.argtypes = [ctypes.c_int64, ctypes.c_int64, p, p,
+                                                         p, p, p, ctypes.c_int64]
+                    _schedule["lib"] = lib
         return _schedule["lib"]
 
 

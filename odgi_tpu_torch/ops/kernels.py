@@ -52,6 +52,7 @@ from pathlib import Path
 
 import torch
 
+from ..utils.metrics import TOTALS, timed
 from . import strata_sgd, strata_xxl
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -127,10 +128,12 @@ def library_paths() -> list:
     return [BUILD_DIR / f"{src.stem}_{tag}.so" for src in sources()]
 
 
+@timed("kernels.build")
 def build() -> list:
     """Compile every source that has no build of this key yet, one nvcc
     each, all started at once; returns the shared libraries.  nvcc's
-    -Xptxas -v report is kept beside each."""
+    -Xptxas -v report is kept beside each.  Timed as ``kernels.build``
+    (``utils.metrics.TOTALS``, the nvcc runs as its compiles)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for src, so in zip(sources(), library_paths()):
@@ -140,6 +143,7 @@ def build() -> list:
         proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         jobs.append((src, so, tmp, proc))
+    TOTALS["kernels.build"]["compiles"] += len(jobs)
     failed = []
     for src, so, tmp, proc in jobs:
         out, err = proc.communicate()
@@ -161,21 +165,27 @@ def ptxas_report() -> str:
 def _fn(name: str):
     """The C entry `name`, from whichever library defines it."""
     if not _fns:
-        for so in build():
-            lib = ctypes.CDLL(str(so))
-            for n, argtypes in SIGNATURES.items():
-                if hasattr(lib, n):
-                    fn = getattr(lib, n)
-                    fn.argtypes = argtypes
-                    fn.restype = I
-                    _fns[n] = fn
-            for n, (argtypes, restype) in QUERIES.items():
-                if hasattr(lib, n):
-                    fn = getattr(lib, n)
-                    fn.argtypes = argtypes
-                    fn.restype = restype
-                    _fns[n] = fn
+        _load()
     return _fns[name]
+
+
+@timed("kernels.build")
+def _load() -> None:
+    """Build the libraries and bind every C entry they define."""
+    for so in build():
+        lib = ctypes.CDLL(str(so))
+        for n, argtypes in SIGNATURES.items():
+            if hasattr(lib, n):
+                fn = getattr(lib, n)
+                fn.argtypes = argtypes
+                fn.restype = I
+                _fns[n] = fn
+        for n, (argtypes, restype) in QUERIES.items():
+            if hasattr(lib, n):
+                fn = getattr(lib, n)
+                fn.argtypes = argtypes
+                fn.restype = restype
+                _fns[n] = fn
 
 
 def _require(cond: bool, what: str) -> None:

@@ -36,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import native
+from ..utils.metrics import span
 from .strata_plan import CHUNK, LANE, RC
 
 
@@ -79,6 +80,7 @@ def _csr(groups: int, cgs: int, counts: np.ndarray, vals: list) -> tuple:
     return pred_off.astype(np.int32), pred
 
 
+@span("strata.chunk_schedule")
 def chunk_schedule(p: dict) -> tuple:
     """The schedule of plan `p` (``plan_run``'s dict).
 

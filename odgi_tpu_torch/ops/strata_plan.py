@@ -18,6 +18,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..utils.metrics import span
 from .sgd import sgd_schedule
 from .zipf import zeta_eta_table
 
@@ -173,6 +174,7 @@ def _count_valid(g, o_blk: np.ndarray, d_arr: np.ndarray) -> int:
     return total
 
 
+@span("strata.plan")
 def plan_run(g, cfg, one_d: bool = False) -> dict:
     """Chunks per iteration, merge groups, the chunk scalars and the exact
     slot and valid-pair counts of one run.

@@ -42,12 +42,14 @@ the plain version for CPU tensors and launch the kernel for CUDA tensors.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..utils.metrics import span
 from . import kernels, strata_levels
 from .sgd import LAST_RUN
 from .strata_plan import CHUNK, LANE, P1_PATH, P1_POS, PATH, POS, POSEND, plan_run
@@ -344,6 +346,7 @@ class MergeIndex:
     block_eps: int
 
     @staticmethod
+    @span("strata.merge_index")
     def build(g, num_slots: int, one_d: bool, device) -> "MergeIndex":
         S = g.num_steps
         handle = g.step_handle.astype(np.int64)
@@ -368,6 +371,12 @@ class MergeIndex:
             ecap=E + (1 if one_d else 2),
             block_eps=merge_block_eps(off),
         )
+
+    def to(self, device) -> "MergeIndex":
+        """The index with its tensors on `device`."""
+        return dataclasses.replace(self, ep=self.ep.to(device), csr_off=self.csr_off.to(device),
+                                   csr_slot=self.csr_slot.to(device),
+                                   recip=self.recip.to(device))
 
 
 SUM_TILE = 4096  # CSR entries a thread block of strata_merge_sum stages at once
@@ -413,68 +422,76 @@ class StrataState:
     order: Optional[np.ndarray] = None    # "xxl": relabel order
 
     @staticmethod
+    @span("strata.build")
     def build(g, cfg, init: np.ndarray, one_d: bool, device,
               route: str = "resident", plan: Optional[dict] = None) -> "StrataState":
         """`init`: (2N, 2) coordinates for 2D, (N,) positions for 1D, in
         `g`'s numbering.  `plan` replaces `plan_run`'s plan of `g` (the
         sharded run's stacked plan); the "xxl" route, which relabels `g`,
-        takes none."""
+        takes none.  The host work comes first, in its own spans (relabel,
+        plan, chunk schedule, merge index, block schedule), then the slot
+        arrays and every copy to `device` (``strata.upload``)."""
         if route not in ROUTES:
             raise ValueError(f"strata route {route!r} is not one of {ROUTES}")
         order = None
         if route == "xxl":
             if plan is not None:
                 raise ValueError("the xxl route relabels the graph and plans it itself")
-            g, order = relabel(g)
-            init = relabel_coords(np.asarray(init), order)
+            with span("strata.relabel"):
+                g, order = relabel(g)
+                init = relabel_coords(np.asarray(init), order)
         p = plan_run(g, cfg, one_d=one_d) if plan is None else plan
         data = p["data"]
         L = data.num_slots
         S = g.num_steps
         if int((p["o_blk"].astype(np.int64) * LANE + CHUNK + p["d_arr"]).max()) > L:
             raise AssertionError("strata plan: a window runs past the planes")
-        node = (g.step_handle >> 1).astype(np.int64)
-        if one_d:
-            x32 = np.asarray(init, np.float32)
-            base = np.zeros((1, L), np.float32)
-            base[0, :S] = x32[node]
-            coords = x32.astype(np.float64)[None, :]
-        else:
-            c = np.asarray(init, np.float64)
-            c32 = c.astype(np.float32)
-            epf = g.step_handle.astype(np.int64)
-            base = np.zeros((4, L), np.float32)
-            base[0, :S] = c32[epf, 0]
-            base[1, :S] = c32[epf ^ 1, 0]
-            base[2, :S] = c32[epf, 1]
-            base[3, :S] = c32[epf ^ 1, 1]
-            coords = np.ascontiguousarray(c.T)
-        mi = MergeIndex.build(g, L, one_d, device)
-        od = np.stack([p["o_blk"], p["d_arr"]], axis=1).astype(np.int32)
-        t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
-        base_t = t(base, torch.float32)
         perm_h, lvl_off, pred_off, pred = strata_levels.chunk_schedule(p)
-        off_t = t(lvl_off, torch.int32)
-        return StrataState(
-            plan=p,
-            one_d=one_d,
-            planes=t(data.planes, torch.int32),
-            base=base_t,
-            drift=torch.zeros_like(base_t),
-            od=t(od, torch.int32),
-            eta=t(p["eta_table"], torch.float32),
-            mi=mi,
-            coords=t(coords, torch.float64),
-            upd=torch.zeros((coords.shape[0], mi.ecap), dtype=torch.float64, device=device),
-            perm=t(perm_h, torch.int32),
-            lvl_rows=[off_t[gid, :n + 1] for gid, n in enumerate(strata_levels.depths(lvl_off))],
-            pred_off=t(pred_off, torch.int32),
-            pred=t(pred, torch.int32),
-            dmax=torch.zeros(p["groups"], dtype=torch.float32, device=device),
-            route=route,
-            bsch=BlockSchedule.build(g, one_d, device) if route == "xxl" else None,
-            order=order,
-        )
+        mi = MergeIndex.build(g, L, one_d, torch.device("cpu"))
+        bsch = BlockSchedule.build(g, one_d, torch.device("cpu")) if route == "xxl" else None
+        with span("strata.upload"):
+            node = (g.step_handle >> 1).astype(np.int64)
+            if one_d:
+                x32 = np.asarray(init, np.float32)
+                base = np.zeros((1, L), np.float32)
+                base[0, :S] = x32[node]
+                coords = x32.astype(np.float64)[None, :]
+            else:
+                c = np.asarray(init, np.float64)
+                c32 = c.astype(np.float32)
+                epf = g.step_handle.astype(np.int64)
+                base = np.zeros((4, L), np.float32)
+                base[0, :S] = c32[epf, 0]
+                base[1, :S] = c32[epf ^ 1, 0]
+                base[2, :S] = c32[epf, 1]
+                base[3, :S] = c32[epf ^ 1, 1]
+                coords = np.ascontiguousarray(c.T)
+            od = np.stack([p["o_blk"], p["d_arr"]], axis=1).astype(np.int32)
+            mi = mi.to(device)
+            t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+            base_t = t(base, torch.float32)
+            off_t = t(lvl_off, torch.int32)
+            return StrataState(
+                plan=p,
+                one_d=one_d,
+                planes=t(data.planes, torch.int32),
+                base=base_t,
+                drift=torch.zeros_like(base_t),
+                od=t(od, torch.int32),
+                eta=t(p["eta_table"], torch.float32),
+                mi=mi,
+                coords=t(coords, torch.float64),
+                upd=torch.zeros((coords.shape[0], mi.ecap), dtype=torch.float64, device=device),
+                perm=t(perm_h, torch.int32),
+                lvl_rows=[off_t[gid, :n + 1]
+                          for gid, n in enumerate(strata_levels.depths(lvl_off))],
+                pred_off=t(pred_off, torch.int32),
+                pred=t(pred, torch.int32),
+                dmax=torch.zeros(p["groups"], dtype=torch.float32, device=device),
+                route=route,
+                bsch=None if bsch is None else bsch.to(device),
+                order=order,
+            )
 
     def run_group(self, gid: int, track: bool = False) -> None:
         """One merge group: the chunk phase on the leveled kernel (with
@@ -503,6 +520,7 @@ class StrataState:
                                  f"do not tile {iters} iterations of {p['cpi']}")
         return mpi
 
+    @span("strata.run")
     def run(self, delta: float = 0.0) -> dict:
         """The run's groups in order.  With delta > 0 (-j) the chunk phase
         tracks each group's Delta_max, and the run stops after the first

@@ -14,11 +14,13 @@ endpoints, whatever the input ids were.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..utils.metrics import span
 from .strata_plan import LANE, TR, _pad_to
 
 # Endpoints per node block; the blocked sum splits each over thread blocks
@@ -143,6 +145,7 @@ class BlockSchedule:
         return self.blk_off.shape[0] - 1
 
     @staticmethod
+    @span("strata.block_schedule")
     def build(g, one_d: bool, device, bs: int | None = None) -> "BlockSchedule":
         bs = XXL_BS if bs is None else bs
         sched, K, nb = build_schedule(g, bs, one_d)
@@ -151,3 +154,8 @@ class BlockSchedule:
                                       device=device)
         return BlockSchedule(tile=t(sched[0, :K]), block=t(sched[1, :K]),
                              blk_off=t(blk_off), bs=bs, num_steps=g.num_steps)
+
+    def to(self, device) -> "BlockSchedule":
+        """The schedule with its tensors on `device`."""
+        return dataclasses.replace(self, tile=self.tile.to(device), block=self.block.to(device),
+                                   blk_off=self.blk_off.to(device))

@@ -1,0 +1,9 @@
+"""Seconds a job spends planning its strata run: the program's span
+``strata.plan`` (``ops/strata_plan.py`` ``plan_run``: the slot planes, the
+chunk scalars and the valid-pair counts), from the trace."""
+
+from portbench.metrics._program_spans import per_job
+
+
+def read(run):
+    return per_job(run, ("strata.plan",))
