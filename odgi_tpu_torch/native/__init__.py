@@ -1,5 +1,6 @@
-"""The native GFA parser (``src/gfa_parse.cpp``) and chunk schedule
-(``src/strata_schedule.cpp``), each built at first use.
+"""The native GFA parser (``src/gfa_parse.cpp``), chunk schedule
+(``src/strata_schedule.cpp``) and step-table indexes
+(``src/strata_steps.cpp``), each built at first use.
 
 The parser is a copy of ``odgi_tpu/native``'s C++ parser: one mmap pass
 over the file into flat arrays.  ``g++ -O3 -std=c++17`` builds it into
@@ -10,7 +11,11 @@ Without a working ``g++`` the parser is unavailable (``get_lib()`` returns
 None and ``build_error()`` says why) and ``io/gfa.py`` parses in Python.
 The schedule library (``schedule_lib()``) is built the same way, the first
 time a strata run plans its chunks; without it ``ops/strata_levels.py``
-builds the same schedule in numpy.
+builds the same schedule in numpy.  So is the step-table library
+(``steps_lib()``), the first time a strata run indexes its steps (the
+first-visit order, the merge CSR, the block schedule); without it
+``ops/strata_xxl.py`` and ``ops/strata_sgd.py`` build the same arrays in
+numpy.  ``steps_pass()`` counts which of the two each pass took.
 """
 
 from __future__ import annotations
@@ -26,16 +31,20 @@ from typing import Optional
 import numpy as np
 
 from ..core.graph import GraphTensors
-from ..utils.metrics import TOTALS, timed
+from ..utils.metrics import TOTALS, count, timed
 
 SRC = Path(__file__).resolve().parent / "src" / "gfa_parse.cpp"
 SCHEDULE_SRC = SRC.with_name("strata_schedule.cpp")
+STEPS_SRC = SRC.with_name("strata_steps.cpp")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 _lock = threading.Lock()
 _state: dict = {"lib": None, "tried": False, "error": None}
 _schedule: dict = {"lib": None, "tried": False, "error": None}
+_steps: dict = {"lib": None, "tried": False, "error": None}
+# TOTALS names of the step-table passes, by the path each took
+STEPS_NATIVE, STEPS_NUMPY = "strata.steps_native", "strata.steps_numpy"
 
 
 class _GfaResult(ctypes.Structure):
@@ -72,7 +81,8 @@ def build(src: Path = SRC) -> Path:
     """Compile `src` (by default the parser) unless this key is built
     already; raises RuntimeError when g++ is missing or fails.  Timed as
     ``native.build`` (``utils.metrics.TOTALS``, the g++ runs as its
-    compiles), as are the first loads of `get_lib` and `schedule_lib`."""
+    compiles), as are the first loads of `get_lib`, `schedule_lib` and
+    `steps_lib`."""
     so = library_path(src)
     if so.exists():
         return so
@@ -90,24 +100,50 @@ def build(src: Path = SRC) -> Path:
     return so
 
 
+def _load(state: dict, src: Path, bind) -> Optional[ctypes.CDLL]:
+    """The library of `src` (built and bound by `bind` on the first call,
+    timed as ``native.build``), or None when it cannot be built or loaded
+    (``state["error"]`` says why)."""
+    with _lock:
+        if not state["tried"]:
+            state["tried"] = True
+            with timed("native.build"):
+                try:
+                    lib = ctypes.CDLL(str(build(src)))
+                except (RuntimeError, OSError) as exc:
+                    state["error"] = str(exc)
+                else:
+                    bind(lib)
+                    state["lib"] = lib
+        return state["lib"]
+
+
+def _bind_parser(lib: ctypes.CDLL) -> None:
+    lib.odgi_gfa_parse.restype = ctypes.POINTER(_GfaResult)
+    lib.odgi_gfa_parse.argtypes = [ctypes.c_char_p]
+    lib.odgi_gfa_free.restype = None
+    lib.odgi_gfa_free.argtypes = [ctypes.POINTER(_GfaResult)]
+
+
+def _bind_schedule(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int64
+    lib.odgi_strata_schedule.restype = i
+    lib.odgi_strata_schedule.argtypes = [i, i, p, p, p, p, p, i]
+
+
+def _bind_steps(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int64
+    for fn, args in ((lib.odgi_first_visit, [i, p, i, p]),
+                     (lib.odgi_merge_csr, [i, p, i, i, i, p, p, p]),
+                     (lib.odgi_block_schedule, [i, p, i, i, i, i, p, p, i])):
+        fn.restype = i
+        fn.argtypes = args
+
+
 def get_lib() -> Optional[ctypes.CDLL]:
     """The loaded parser (built on the first call), or None when it cannot
     be built or loaded."""
-    with _lock:
-        if not _state["tried"]:
-            _state["tried"] = True
-            with timed("native.build"):
-                try:
-                    lib = ctypes.CDLL(str(build()))
-                except (RuntimeError, OSError) as exc:
-                    _state["error"] = str(exc)
-                else:
-                    lib.odgi_gfa_parse.restype = ctypes.POINTER(_GfaResult)
-                    lib.odgi_gfa_parse.argtypes = [ctypes.c_char_p]
-                    lib.odgi_gfa_free.restype = None
-                    lib.odgi_gfa_free.argtypes = [ctypes.POINTER(_GfaResult)]
-                    _state["lib"] = lib
-        return _state["lib"]
+    return _load(_state, SRC, _bind_parser)
 
 
 def build_error() -> Optional[str]:
@@ -118,21 +154,22 @@ def build_error() -> Optional[str]:
 def schedule_lib() -> Optional[ctypes.CDLL]:
     """The loaded chunk schedule library (built on the first call), or None
     when it cannot be built or loaded (``_schedule["error"]`` says why)."""
-    with _lock:
-        if not _schedule["tried"]:
-            _schedule["tried"] = True
-            with timed("native.build"):
-                try:
-                    lib = ctypes.CDLL(str(build(SCHEDULE_SRC)))
-                except (RuntimeError, OSError) as exc:
-                    _schedule["error"] = str(exc)
-                else:
-                    p = ctypes.c_void_p
-                    lib.odgi_strata_schedule.restype = ctypes.c_int64
-                    lib.odgi_strata_schedule.argtypes = [ctypes.c_int64, ctypes.c_int64, p, p,
-                                                         p, p, p, ctypes.c_int64]
-                    _schedule["lib"] = lib
-        return _schedule["lib"]
+    return _load(_schedule, SCHEDULE_SRC, _bind_schedule)
+
+
+def steps_lib() -> Optional[ctypes.CDLL]:
+    """The loaded step-table library (built on the first call), or None
+    when it cannot be built or loaded (``_steps["error"]`` says why)."""
+    return _load(_steps, STEPS_SRC, _bind_steps)
+
+
+def steps_pass() -> Optional[ctypes.CDLL]:
+    """`steps_lib()` for one pass over a step table, counted as a run of
+    ``TOTALS[STEPS_NATIVE]``, or of ``TOTALS[STEPS_NUMPY]`` when the pass
+    falls back to numpy."""
+    lib = steps_lib()
+    count(STEPS_NATIVE if lib is not None else STEPS_NUMPY)
+    return lib
 
 
 def parse_gfa_native(path: str) -> Optional[GraphTensors]:

@@ -49,6 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import native
 from ..utils.metrics import span
 from . import kernels, strata_levels
 from .sgd import LAST_RUN
@@ -348,19 +349,11 @@ class MergeIndex:
     @staticmethod
     @span("strata.merge_index")
     def build(g, num_slots: int, one_d: bool, device) -> "MergeIndex":
-        S = g.num_steps
-        handle = g.step_handle.astype(np.int64)
-        node = handle >> 1
-        r = np.bincount(node, minlength=g.num_nodes).astype(np.float64)
-        if one_d:
-            E, key = g.num_nodes, node
-        else:
-            E, key, r = 2 * g.num_nodes, handle, np.repeat(r, 2)
-        ep = np.full(num_slots, E, np.int64)
-        ep[:S] = key
-        order = np.argsort(key, kind="stable")
-        off = np.zeros(E + 1, np.int64)
-        np.cumsum(np.bincount(key, minlength=E), out=off[1:])
+        E = g.num_nodes if one_d else 2 * g.num_nodes
+        ep, off, order = merge_csr(g.step_handle, g.num_nodes, num_slots, one_d)
+        r = np.diff(off).astype(np.float64)
+        if not one_d:  # 1/R of a node on both of its endpoints
+            r = np.repeat(r[0::2] + r[1::2], 2)
         recip = np.where(r > 0, 1.0 / np.maximum(r, 1), 0.0)
         t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
         return MergeIndex(
@@ -377,6 +370,39 @@ class MergeIndex:
         return dataclasses.replace(self, ep=self.ep.to(device), csr_off=self.csr_off.to(device),
                                    csr_slot=self.csr_slot.to(device),
                                    recip=self.recip.to(device))
+
+
+def merge_csr(h: np.ndarray, num_nodes: int, num_slots: int, one_d: bool):
+    """(ep, off, slot) i32 of the step handles `h` over E endpoints (the
+    node in 1D, the handle in 2D): ep (num_slots,) each slot's endpoint, E
+    on the pad slots; off (E+1,) and slot (S,) the CSR of each endpoint's
+    slots in ascending order.  A stable counting sort in C++
+    (``native/src/strata_steps.cpp``), or numpy's stable argsort where it
+    is missing."""
+    h = np.ascontiguousarray(h, dtype=np.int64)
+    if num_slots < len(h):
+        raise ValueError(f"{num_slots} slots hold fewer than the {len(h)} steps")
+    lib = native.steps_pass()
+    if lib is None:
+        return merge_csr_numpy(h, num_nodes, num_slots, one_d)
+    E, S = (num_nodes if one_d else 2 * num_nodes), len(h)
+    ep = np.empty(num_slots, np.int32)
+    off = np.empty(E + 1, np.int32)
+    slot = np.empty(S, np.int32)
+    if lib.odgi_merge_csr(S, h.ctypes.data, num_nodes, int(one_d), num_slots, ep.ctypes.data,
+                          off.ctypes.data, slot.ctypes.data) < 0:
+        raise ValueError("a step's node is not below the node count")
+    return ep, off, slot
+
+
+def merge_csr_numpy(h: np.ndarray, num_nodes: int, num_slots: int, one_d: bool):
+    """`merge_csr` in numpy."""
+    E, key = (num_nodes, h >> 1) if one_d else (2 * num_nodes, h)
+    ep = np.full(num_slots, E, np.int32)
+    ep[:len(h)] = key
+    off = np.zeros(E + 1, np.int64)
+    np.cumsum(np.bincount(key, minlength=E), out=off[1:])
+    return ep, off.astype(np.int32), np.argsort(key, kind="stable").astype(np.int32)
 
 
 SUM_TILE = 4096  # CSR entries a thread block of strata_merge_sum stages at once

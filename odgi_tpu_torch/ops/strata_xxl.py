@@ -1,5 +1,6 @@
 """Host side of the XXL route: relabel by first visit, node blocks and the
-(block, tile) merge schedule (numpy).
+(block, tile) merge schedule (counting passes in C++, numpy where g++ is
+missing).
 
 The counterpart of the host half of ``odgi_tpu/ops/pallas_sgd_xxl.py``
 (``_locality_order``, the relabel in ``path_sgd_2d_pallas_xxl`` /
@@ -20,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import native
 from ..utils.metrics import span
 from .strata_plan import LANE, TR, _pad_to
 
@@ -34,12 +36,23 @@ SCHED_BATCH = 512
 
 def locality_order(g) -> np.ndarray:
     """Nodes in order of first appearance along the step table, then the
-    nodes no step visits (ascending)."""
-    node = (g.step_handle >> 1).astype(np.int64)
-    vals, idx = np.unique(node, return_index=True)
-    visited = vals[np.argsort(idx)]
-    unvisited = np.setdiff1d(np.arange(g.num_nodes, dtype=np.int64), vals)
-    return np.concatenate([visited, unvisited])
+    nodes no step visits (ascending): one pass over the steps in C++
+    (``native/src/strata_steps.cpp``), or in numpy where it is missing."""
+    h = np.ascontiguousarray(g.step_handle, dtype=np.int64)
+    lib = native.steps_pass()
+    if lib is None:
+        return locality_order_numpy(h, g.num_nodes)
+    order = np.empty(g.num_nodes, np.int64)
+    if lib.odgi_first_visit(len(h), h.ctypes.data, g.num_nodes, order.ctypes.data) < 0:
+        raise ValueError("a step's node is not below the node count")
+    return order
+
+
+def locality_order_numpy(h: np.ndarray, num_nodes: int) -> np.ndarray:
+    """`locality_order` from the step handles `h`, in numpy."""
+    vals, idx = np.unique(h >> 1, return_index=True)
+    unvisited = np.setdiff1d(np.arange(num_nodes, dtype=np.int64), vals)
+    return np.concatenate([vals[np.argsort(idx)], unvisited])
 
 
 def relabel(g):
@@ -88,21 +101,10 @@ def build_schedule(g, bs: int, one_d: bool):
     (block, tile): (sched (8, Kpad) i32 rows [tile, block, first, last,
     safe, 0, 0, 0], K, NB).  `first` / `last` mark a block's first and last
     entry; `safe` marks an entry whose successor reads another tile."""
-    node = (g.step_handle >> 1).astype(np.int64)
-    if one_d:
-        ep = node
-        idx_count = g.num_nodes + 1
-    else:
-        ep = 2 * node + (g.step_handle & 1).astype(np.int64)
-        idx_count = 2 * g.num_nodes + 2
+    idx_count = g.num_nodes + 1 if one_d else 2 * g.num_nodes + 2
     _, _, nb = block_geometry(idx_count, bs)
-    tile = np.arange(g.num_steps, dtype=np.int64) // TILE
-    blk = ep // bs
-    n_tiles_tot = int(tile.max()) + 1 if len(tile) else 1
-    pairs = np.unique(blk * n_tiles_tot + tile)
-    b_arr = (pairs // n_tiles_tot).astype(np.int32)
-    t_arr = (pairs % n_tiles_tot).astype(np.int32)
-    K = len(pairs)
+    t_arr, b_arr = schedule_entries(g.step_handle, g.num_nodes, bs, nb, one_d)
+    K = len(t_arr)
     first = np.zeros(K, np.int32)
     last = np.zeros(K, np.int32)
     first[0] = 1
@@ -120,6 +122,38 @@ def build_schedule(g, bs: int, one_d: bool):
         safe[:-1] = (t_arr[1:] != t_arr[:-1]).astype(np.int32)
     sched[4, :K] = safe
     return sched, K, nb
+
+
+def schedule_entries(h: np.ndarray, num_nodes: int, bs: int, nb: int, one_d: bool):
+    """(tile, block) i32 (K,): the distinct (endpoint // bs, step // TILE)
+    pairs of the step handles `h`, sorted by (block, tile), of `nb` blocks:
+    one pass over the steps and a count per block in C++
+    (``native/src/strata_steps.cpp``), or in numpy where it is missing."""
+    h = np.ascontiguousarray(h, dtype=np.int64)
+    lib = native.steps_pass()
+    if lib is None:
+        return schedule_entries_numpy(h, bs, one_d)
+    n_tiles = -(-len(h) // TILE)
+    t_arr = np.empty(max(8 * (n_tiles + nb), 1), np.int32)
+    b_arr = np.empty_like(t_arr)
+    for _ in range(2):  # once more with room for every entry, if the guess was short
+        K = lib.odgi_block_schedule(len(h), h.ctypes.data, num_nodes, int(one_d), bs, nb,
+                                    t_arr.ctypes.data, b_arr.ctypes.data, len(t_arr))
+        if K < 0:
+            raise ValueError("a step's node is not below the node count")
+        if K <= len(t_arr):
+            break
+        t_arr, b_arr = np.empty(K, np.int32), np.empty(K, np.int32)
+    return t_arr[:K].copy(), b_arr[:K].copy()
+
+
+def schedule_entries_numpy(h: np.ndarray, bs: int, one_d: bool):
+    """`schedule_entries` in numpy."""
+    ep = h >> 1 if one_d else h
+    tile = np.arange(len(h), dtype=np.int64) // TILE
+    n_tiles = int(tile.max()) + 1 if len(tile) else 1
+    pairs = np.unique(ep // bs * n_tiles + tile)
+    return (pairs % n_tiles).astype(np.int32), (pairs // n_tiles).astype(np.int32)
 
 
 @dataclass

@@ -25,6 +25,9 @@ the native libraries' build and load, ``kernels.build`` /
 ``native.build``): it is a span too, and always adds its host seconds and
 a run to ``TOTALS[name]``, since those steps run before any profiler
 starts; the step adds its compiler runs to the total's ``compiles``.
+``count(name)`` adds a run alone: which path a step took
+(``strata.steps_native`` / ``strata.steps_numpy``, a pass over a strata
+run's step table in C++ or in numpy).
 """
 
 from __future__ import annotations
@@ -158,9 +161,15 @@ def span(name: str) -> _Span:
     return off
 
 
-# name -> {"seconds", "runs", "compiles"} of each once-a-process step
+# name -> {"seconds", "runs", "compiles"} of each once-a-process step, and
+# the runs of each counted step (`count`)
 TOTALS: dict = {}
 _held = threading.local()
+
+
+def count(name: str) -> None:
+    """One run of the counted step `name` in ``TOTALS[name]`` (no time)."""
+    TOTALS.setdefault(name, dict(seconds=0.0, runs=0, compiles=0))["runs"] += 1
 
 
 @contextlib.contextmanager

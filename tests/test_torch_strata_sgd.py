@@ -20,8 +20,11 @@ from odgi_tpu.core.graph import GraphBuilder
 from odgi_tpu.ops import pallas_sgd as ps
 from odgi_tpu.ops import sgd as j_sgd
 
+from odgi_tpu_torch import native
 from odgi_tpu_torch.convert import graph_from_arrays, graph_to_arrays
 from odgi_tpu_torch.ops import sgd, strata_sgd
+from odgi_tpu_torch.utils.metrics import TOTALS
+from test_torch_xxl import steps_path  # noqa: F401  (a fixture)
 
 SHORT_TOL = 1e-6
 DEFAULT_TOL = 1e-4
@@ -183,6 +186,65 @@ def test_merge_index_block_eps_follow_list_length(graphs):
         assert mi.block_eps * mean <= strata_sgd.SUM_TILE
         assert (mi.block_eps == strata_sgd.SUM_THREADS
                 or 2 * mi.block_eps * mean > strata_sgd.SUM_TILE)
+
+
+def _handles(gt, table):
+    """(step handles, node count) of a case: the graph; its steps over 60
+    more nodes that no step visits; its first 1000 steps; no steps."""
+    h, n = gt.step_handle.astype(np.int64), gt.num_nodes
+    return {"graph": (h, n), "stepless-nodes": (h, n + 60), "short": (h[:1000], n),
+            "empty": (h[:0], n)}[table]
+
+
+def _merge_index_argsort(h, n, num_slots, one_d):
+    """The merge index's arrays as the stable argsort form they replaced:
+    (ep, csr_off, csr_slot, recip)."""
+    node = h >> 1
+    r = np.bincount(node, minlength=n).astype(np.float64)
+    if one_d:
+        E, key = n, node
+    else:
+        E, key, r = 2 * n, h, np.repeat(r, 2)
+    ep = np.full(num_slots, E, np.int64)
+    ep[:len(h)] = key
+    off = np.zeros(E + 1, np.int64)
+    np.cumsum(np.bincount(key, minlength=E), out=off[1:])
+    recip = np.where(r > 0, 1.0 / np.maximum(r, 1), 0.0)
+    return ep, off, np.argsort(key, kind="stable"), recip
+
+
+@pytest.mark.parametrize("pad", [0, 4096], ids=["no-pad", "pad"])
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+@pytest.mark.parametrize("table", ["graph", "stepless-nodes", "short", "empty"])
+def test_merge_csr_equals_stable_argsort(graphs, steps_path, table, one_d, pad):
+    h, n = _handles(graphs[1], table)
+    ep, off, slot = strata_sgd.merge_csr(h, n, len(h) + pad, one_d)
+    assert ep.dtype == off.dtype == slot.dtype == np.int32
+    for got, want in zip((ep, off, slot), _merge_index_argsort(h, n, len(h) + pad, one_d)):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+@pytest.mark.parametrize("table", ["graph", "stepless-nodes"])
+def test_merge_index_equals_argsort_form(graphs, steps_path, table, one_d):
+    """MergeIndex.build's tensors equal the argsort form's, and its pass is
+    counted under the path it took."""
+    h, n = _handles(graphs[1], table)
+    g = graph_from_arrays(dict(graph_to_arrays(graphs[0])) | dict(
+        node_len=np.ones(n, np.int64), seq_offset=np.arange(n + 1),
+        seq=np.zeros(n, np.uint8), node_id=np.arange(1, n + 1)))
+    name = native.STEPS_NATIVE if steps_path == "native" else native.STEPS_NUMPY
+    before = TOTALS.get(name, {}).get("runs", 0)
+    mi = strata_sgd.MergeIndex.build(g, len(h) + 4096, one_d, torch.device("cpu"))
+    assert TOTALS[name]["runs"] == before + 1
+    ep, off, slot, recip = _merge_index_argsort(h, n, len(h) + 4096, one_d)
+    for got, want, dt in ((mi.ep, ep, torch.int32), (mi.csr_off, off, torch.int32),
+                          (mi.csr_slot, slot, torch.int32), (mi.recip, recip, torch.float64)):
+        assert got.dtype == dt and np.array_equal(got.numpy(), want)
+    assert mi.ecap == len(off) - 1 + (1 if one_d else 2)
+    assert mi.block_eps == strata_sgd.merge_block_eps(off)
+    if table == "stepless-nodes":
+        assert (recip[-60 * (1 if one_d else 2):] == 0).all()
 
 
 def _small_graph(gt):

@@ -8,6 +8,8 @@ not the identity.
 
 - `locality_order`, the relabel, `block_geometry` and the schedule's rows
   0-4 equal the JAX package's byte for byte.
+- The first-visit order and the schedule's entries, in C++ and in numpy,
+  equal the `np.unique` forms they replace, array for array.
 - The blocked plain sum equals the CSR plain sums exactly.
 - The "xxl" route equals the port's "resident" route exactly; it is within
   1e-6 of the coordinate scale of the exact twins and within 1e-5 of the
@@ -16,6 +18,7 @@ not the identity.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -27,13 +30,26 @@ from odgi_tpu.ops import pallas_sgd as ps
 from odgi_tpu.ops import pallas_sgd_xxl as jxxl
 from odgi_tpu.ops import sgd as j_sgd
 
+from odgi_tpu_torch import native
 from odgi_tpu_torch.convert import graph_from_arrays, graph_to_arrays
 from odgi_tpu_torch.ops import sgd, strata_sgd, strata_xxl
+from odgi_tpu_torch.utils.metrics import TOTALS
 
 BS = 1024
 TWIN_TOL = 1e-6
 KERNEL_TOL = 1e-5
 KW = dict(iter_max=2, min_term_updates=3 * 1024)
+
+
+@pytest.fixture(params=["native", "numpy"])
+def steps_path(request, monkeypatch):
+    """The step-table passes (``native/src/strata_steps.cpp``) in C++,
+    which has to load, or in numpy, the library taken away."""
+    if request.param == "native":
+        assert native.steps_lib() is not None, native._steps["error"]
+    else:
+        monkeypatch.setattr(native, "steps_lib", lambda: None)
+    return request.param
 
 
 @pytest.fixture(scope="module")
@@ -143,6 +159,117 @@ def test_schedule_covers_every_step(graphs, one_d):
         assert (np.diff(tile[off[b]:off[b + 1]]) > 0).all()
     # relabeling by first visit needs fewer tile reads than the shuffled ids
     assert len(tile) <= strata_xxl.build_schedule(gt, BS, one_d)[1]
+
+
+# ---------------------------------------------------------------------------
+# The step-table passes, in C++ and in numpy
+# ---------------------------------------------------------------------------
+
+
+def _steps(n_nodes, n_steps, visited, seed):
+    """A step table of `n_steps` random handles over `visited` of
+    `n_nodes` nodes (the rest unvisited)."""
+    rng = np.random.default_rng(seed)
+    nodes = rng.choice(n_nodes, visited, replace=False)
+    h = 2 * nodes[rng.integers(0, visited, n_steps)] + rng.integers(0, 2, n_steps)
+    return types.SimpleNamespace(step_handle=h.astype(np.int64), num_nodes=n_nodes,
+                                 num_steps=n_steps)
+
+
+STEP_TABLES = {
+    "unvisited": lambda: _steps(700, 3000, 450, 1),
+    "many-tiles": lambda: _steps(3000, 50_000, 3000, 2),
+    "empty": lambda: _steps(9, 0, 1, 3),
+    "one-node": lambda: _steps(40, 5000, 1, 6),
+}
+
+
+def _first_visit_unique(g):
+    """The first-visit order as the `np.unique` form it replaced."""
+    node = (g.step_handle >> 1).astype(np.int64)
+    vals, idx = np.unique(node, return_index=True)
+    unvisited = np.setdiff1d(np.arange(g.num_nodes, dtype=np.int64), vals)
+    return np.concatenate([vals[np.argsort(idx)], unvisited])
+
+
+@pytest.mark.parametrize("table", ["graph", *STEP_TABLES])
+def test_locality_order_equals_unique_form(graphs, steps_path, table):
+    g = graphs[1] if table == "graph" else STEP_TABLES[table]()
+    order = strata_xxl.locality_order(g)
+    assert order.dtype == np.int64
+    np.testing.assert_array_equal(order, _first_visit_unique(g))
+    if table == "graph":
+        np.testing.assert_array_equal(order, jxxl._locality_order(graphs[0]))
+
+
+def _entries_unique(g, bs, one_d):
+    """The schedule's (tile, block) entries as the `np.unique` form they
+    replaced."""
+    node = (g.step_handle >> 1).astype(np.int64)
+    ep = node if one_d else 2 * node + (g.step_handle & 1).astype(np.int64)
+    tile = np.arange(g.num_steps, dtype=np.int64) // strata_xxl.TILE
+    n_tiles = int(tile.max()) + 1 if len(tile) else 1
+    pairs = np.unique(ep // bs * n_tiles + tile)
+    return pairs % n_tiles, pairs // n_tiles
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+@pytest.mark.parametrize("bs", [128, 256, BS, strata_xxl.XXL_BS])
+@pytest.mark.parametrize("table", ["graph", "relabeled", "one-tile", "many-tiles"])
+def test_schedule_entries_equal_unique_form(graphs, steps_path, table, bs, one_d):
+    gt = graphs[1]
+    g = {"graph": lambda: gt, "relabeled": lambda: strata_xxl.relabel(gt)[0],
+         "one-tile": lambda: STEP_TABLES["unvisited"](),
+         "many-tiles": STEP_TABLES["many-tiles"]}[table]()
+    idx_count = g.num_nodes + 1 if one_d else 2 * g.num_nodes + 2
+    nb = strata_xxl.block_geometry(idx_count, bs)[2]
+    tile, block = strata_xxl.schedule_entries(g.step_handle, g.num_nodes, bs, nb, one_d)
+    want_t, want_b = _entries_unique(g, bs, one_d)
+    assert tile.dtype == block.dtype == np.int32
+    np.testing.assert_array_equal(tile, want_t)
+    np.testing.assert_array_equal(block, want_b)
+    sched, K, _ = strata_xxl.build_schedule(g, bs, one_d)
+    assert K == len(want_t) and (sched[0, :K] == want_t).all() and (sched[1, :K] == want_b).all()
+
+
+def test_native_passes_refuse_nodes_past_the_count():
+    assert native.steps_lib() is not None, native._steps["error"]
+    g = _steps(50, 400, 50, 5)
+    assert (g.step_handle >> 1).max() == 49
+    g.num_nodes = 49
+    with pytest.raises(ValueError):
+        strata_xxl.locality_order(g)
+    with pytest.raises(ValueError):
+        strata_xxl.schedule_entries(g.step_handle, 49, 128, 8, False)
+    with pytest.raises(ValueError):
+        strata_sgd.merge_csr(g.step_handle, 49, 500, True)
+    with pytest.raises(ValueError):  # fewer slots than steps
+        strata_sgd.merge_csr(g.step_handle, 50, 399, True)
+
+
+def _runs(name):
+    return TOTALS.get(name, {}).get("runs", 0)
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+def test_xxl_state_counts_its_passes(graphs, steps_path, small_blocks, one_d):
+    """An xxl set-up runs three passes over its steps (the first-visit
+    order, the merge CSR, the block schedule), each counted under the path
+    it took, and builds the same state either way."""
+    _, gt = graphs
+    name = native.STEPS_NATIVE if steps_path == "native" else native.STEPS_NUMPY
+    other = native.STEPS_NUMPY if steps_path == "native" else native.STEPS_NATIVE
+    before = _runs(name), _runs(other)
+    init = gt.node_offset.astype(np.float32) if one_d else j_init_layout(gt, "d")
+    derive = sgd.derive_config_1d if one_d else sgd.derive_config_2d
+    st = strata_sgd.StrataState.build(gt, derive(gt, **KW), init, one_d,
+                                      torch.device("cpu"), "xxl")
+    assert (_runs(name), _runs(other)) == (before[0] + 3, before[1])
+    np.testing.assert_array_equal(st.order, _first_visit_unique(gt))
+    g_run, _ = strata_xxl.relabel(gt)
+    want_t, want_b = _entries_unique(g_run, BS, one_d)
+    assert torch.equal(st.bsch.tile, torch.as_tensor(want_t, dtype=torch.int32))
+    assert torch.equal(st.bsch.block, torch.as_tensor(want_b, dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------
