@@ -4,7 +4,10 @@ Walks the graph rightward from the head nodes with a stack (the reference's
 deque that pops from the back); the orientation in which a node is first
 visited decides whether it is flipped; with target paths, their nodes
 seed the walk and take the orientation that makes the target traversal
-forward.  The node order is unchanged.
+forward.  The node order is unchanged.  Each call counts the nodes it
+flips (``groom.flipped``) and its restarts from the lowest unvisited node,
+one a node no seed reaches (``groom.restarts``), in
+``utils.metrics.TOTALS``.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ..core.graph import GraphTensors
-from ..utils.metrics import span
+from ..utils.metrics import count, span
 from .topological import head_nodes
 
 
@@ -45,6 +48,7 @@ def groom(g: GraphTensors, target_paths: Optional[Sequence[int]] = None) -> np.n
     stack = list(reversed(seeds))
     targets = adj.targets
     offsets = adj.offsets
+    restarts = 0
     while True:
         while stack:
             h = stack.pop()
@@ -63,6 +67,9 @@ def groom(g: GraphTensors, target_paths: Optional[Sequence[int]] = None) -> np.n
         if len(rest) == 0:
             break
         stack = [int(rest[0]) << 1]
+        restarts += 1
+    count("groom.flipped", int(flipped.sum()))
+    count("groom.restarts", restarts)
     return flipped
 
 

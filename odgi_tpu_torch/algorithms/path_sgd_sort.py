@@ -96,7 +96,9 @@ def sort_pipeline(g: GraphTensors, pipeline: str = "Ygs", sgd_overrides: Optiona
                   snapshot_prefix: Optional[str] = None, progress: bool = False,
                   bfs_chunk: int = 0, dfs_chunk: int = 0, device=None) -> GraphTensors:
     """Apply a chain of sort passes, one a code:
-    Y  1D PG-SGD on `device`, with the config overrides `sgd_overrides`,
+    Y  1D PG-SGD on `device` (span ``sort.path_sgd``: the run, the copy of
+       its positions to the host and their order), with the config
+       overrides `sgd_overrides`,
        the pinned `target_paths` and the path subset `use_paths`; with
        `snapshot_prefix` each iteration's order is written as the .og file
        "<prefix><iteration>", and `progress` (without snapshots) shows a
@@ -120,9 +122,10 @@ def sort_pipeline(g: GraphTensors, pipeline: str = "Ygs", sgd_overrides: Optiona
                 snapshot_cb = _snapshot_writer(g, snapshot_prefix)
             elif progress:
                 snapshot_cb = _progress_meter(g, sgd_overrides)
-            order = path_sgd_order(g, use_paths=use_paths, overrides=sgd_overrides,
-                                   target_paths=target_paths, snapshot_cb=snapshot_cb,
-                                   device=dev)
+            with span("sort.path_sgd"):
+                order = path_sgd_order(g, use_paths=use_paths, overrides=sgd_overrides,
+                                       target_paths=target_paths, snapshot_cb=snapshot_cb,
+                                       device=dev)
         elif c == "g":
             g = apply_groom(g)
             continue

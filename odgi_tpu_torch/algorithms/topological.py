@@ -3,7 +3,10 @@
 The modified Kahn algorithm of ``odgi_tpu/algorithms/topological.py`` with
 cycle-breaking seeds and masked edges.  The ready set, the seed set and the
 unvisited fallback all pop the minimum node rank first, so the order is
-deterministic.  The output is a permutation of node ranks.
+deterministic.  The output is a permutation of node ranks.  Each call
+counts the nodes it takes from the seed set (``topological_order.seeded``)
+and from the unvisited fallback (``topological_order.restarts``) in
+``utils.metrics.TOTALS``.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from typing import List, Set
 import numpy as np
 
 from ..core.graph import GraphTensors
-from ..utils.metrics import span
+from ..utils.metrics import count, span
 
 
 def head_nodes(g: GraphTensors) -> np.ndarray:
@@ -95,6 +98,7 @@ def topological_order(
         if r not in s:
             unvisited.add(r)
 
+    seeded = restarts = 0
     while unvisited or s:
         # refill from seeds, then from an arbitrary unvisited node
         while not s and seeds:
@@ -102,9 +106,11 @@ def topological_order(
             if sr in unvisited:
                 s.add(sr)
                 unvisited.discard(sr)
+                seeded += 1
         if not s:
             r = unvisited.pop_min()
             s.add(r)
+            restarts += 1
 
         while s:
             i = s.pop_min()
@@ -138,4 +144,6 @@ def topological_order(
                     elif nr not in seeds:
                         seeds.add(nr)
 
+    count("topological_order.seeded", seeded)
+    count("topological_order.restarts", restarts)
     return np.asarray(sorted_out, dtype=np.int64)

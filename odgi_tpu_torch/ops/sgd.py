@@ -22,6 +22,7 @@ import torch
 
 from ..core.graph import GraphTensors
 from ..device import resolve_device
+from ..utils.metrics import count
 
 
 def sgd_schedule(
@@ -140,17 +141,20 @@ def _run_route(g: GraphTensors, cfg: SgdConfig, one_d: bool, use_paths, pin_node
     """(graph, route) of a run, as the reference dispatches it: PG-SGD on a
     subset of the paths runs the graph of the kept paths (the config stays
     the caller's); pinning and snapshots take the batched path; so does
-    delta early stop past the resident route, after a note on stderr."""
+    delta early stop past the resident route, after a note on stderr.
+    Each run counts one ``strata.route.<route>`` in ``utils.metrics.TOTALS``."""
     from .strata_route import graph_route
 
     if use_paths is not None and sorted(use_paths) != list(range(g.num_paths)):
         g = g.keep_paths(sorted(use_paths))
     if pin_nodes is not None or snapshot_cb is not None:
-        return g, "batched"
-    route = graph_route(g, cfg, one_d)
-    if cfg.delta > 0 and route != "resident":
-        print(DELTA_NOTE, file=sys.stderr)
         route = "batched"
+    else:
+        route = graph_route(g, cfg, one_d)
+        if cfg.delta > 0 and route != "resident":
+            print(DELTA_NOTE, file=sys.stderr)
+            route = "batched"
+    count(f"strata.route.{route}")
     return g, route
 
 

@@ -25,9 +25,13 @@ the native libraries' build and load, ``kernels.build`` /
 ``native.build``): it is a span too, and always adds its host seconds and
 a run to ``TOTALS[name]``, since those steps run before any profiler
 starts; the step adds its compiler runs to the total's ``compiles``.
-``count(name)`` adds a run alone: which path a step took
+``count(name, n=1)`` adds `n` runs alone, once a call of the step it
+counts, never inside a per-node loop: which path a step took
 (``strata.steps_native`` / ``strata.steps_numpy``, a pass over a strata
-run's step table in C++ or in numpy).
+run's step table in C++ or in numpy; ``strata.route.<route>``, the route
+of a PG-SGD run) or how much structural work a host pass did
+(``groom.flipped`` / ``groom.restarts``, ``topological_order.seeded`` /
+``topological_order.restarts``).
 """
 
 from __future__ import annotations
@@ -167,9 +171,9 @@ TOTALS: dict = {}
 _held = threading.local()
 
 
-def count(name: str) -> None:
-    """One run of the counted step `name` in ``TOTALS[name]`` (no time)."""
-    TOTALS.setdefault(name, dict(seconds=0.0, runs=0, compiles=0))["runs"] += 1
+def count(name: str, n: int = 1) -> None:
+    """`n` runs of the counted step `name` in ``TOTALS[name]`` (no time)."""
+    TOTALS.setdefault(name, dict(seconds=0.0, runs=0, compiles=0))["runs"] += int(n)
 
 
 @contextlib.contextmanager

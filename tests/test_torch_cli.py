@@ -631,8 +631,8 @@ def test_port_test_without_jax_leaves_out_odgi_tpu_files():
     left = res.stderr.split("that import it: ")[1].split()
     assert {"test_torch_compat.py", "test_torch_cli.py", "test_torch_layout0.py"} <= set(left)
     assert sorted(set(PORT_TEST_FILES) - set(left)) == [
-        "test_torch_bcast.py", "test_torch_cuda.py", "test_torch_import.py",
-        "test_torch_spans.py"]
+        "test_torch_bcast.py", "test_torch_chrom_sort.py", "test_torch_cuda.py",
+        "test_torch_import.py", "test_torch_spans.py"]
 
 
 def test_port_test_empty_selection_exits_5():

@@ -39,7 +39,7 @@ EXPECT = {
     "resident": STRATA + ["layout.init", "layout.pack"],
     "xxl": STRATA + ["strata.relabel", "strata.block_schedule", "graph.apply_ordering",
                      "layout.init", "layout.pack"],
-    "Ygs": STRATA + ["sort.order", "sort.groom", "sort.topological_order",
+    "Ygs": STRATA + ["sort.path_sgd", "sort.order", "sort.groom", "sort.topological_order",
                      "graph.apply_ordering"],
 }
 # span -> its innermost program parent
@@ -48,6 +48,9 @@ PARENT = {"strata.relabel": "strata.build", "strata.plan": "strata.build",
           "strata.block_schedule": "strata.build", "strata.upload": "strata.build",
           "strata.build": None, "strata.run": None, "layout.init": None, "layout.pack": None,
           "sort.order": None, "sort.groom": None, "sort.topological_order": None}
+# in a sort, the Y pass's span holds its strata run and its order
+PARENT_SORT = dict(PARENT, **{"sort.path_sgd": None, "strata.build": "sort.path_sgd",
+                              "strata.run": "sort.path_sgd", "sort.order": "sort.path_sgd"})
 # the readers of each case's cell and the spans each sums
 READERS = {
     "strata_relabel_s": ("strata.relabel",),
@@ -176,9 +179,10 @@ def test_every_span_under_its_parent(traced):
     assert names[bench_trace.JOB] == JOBS
     for name in EXPECT[case]:
         assert names[name] >= JOBS, (case, name, names)
+    parent = PARENT_SORT if case == "Ygs" else PARENT
     for s in spans:
-        if s[2] in PARENT:
-            assert _parent(s, spans) == PARENT[s[2]], (case, s[2])
+        if s[2] in parent:
+            assert _parent(s, spans) == parent[s[2]], (case, s[2])
         if s[2] == "graph.apply_ordering" and case == "xxl":
             assert _parent(s, spans) == "strata.relabel"
     unexpected = set(names) - set(EXPECT[case]) - {bench_trace.JOB}
