@@ -3,10 +3,12 @@
 The modified Kahn algorithm of ``odgi_tpu/algorithms/topological.py`` with
 cycle-breaking seeds and masked edges.  The ready set, the seed set and the
 unvisited fallback all pop the minimum node rank first, so the order is
-deterministic.  The output is a permutation of node ranks.  Each call
-counts the nodes it takes from the seed set (``topological_order.seeded``)
-and from the unvisited fallback (``topological_order.restarts``) in
-``utils.metrics.TOTALS``.
+deterministic.  The output is a permutation of node ranks.  The order is
+built in C++ (``native/src/graph_passes.cpp``), or in Python where g++ is
+missing; each call counts the path it took (``gs.native`` /
+``gs.python``), the nodes it takes from the seed set
+(``topological_order.seeded``) and from the unvisited fallback
+(``topological_order.restarts``) in ``utils.metrics.TOTALS``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import List, Set
 
 import numpy as np
 
+from .. import native
 from ..core.graph import GraphTensors
 from ..utils.metrics import count, span
 
@@ -77,8 +80,37 @@ def topological_order(
     the head nodes (the 's' step of the sort pipeline), else `use_tails`
     with the tail nodes."""
     n = g.num_nodes
+    if use_heads:
+        start = head_nodes(g)
+    elif use_tails:
+        start = tail_nodes(g)
+    else:
+        start = np.empty(0, dtype=np.int64)
+    lib = native.gs_pass()
+    if lib is None:
+        order, seeded, restarts = _kahn(g, start)
+    else:
+        off, tgt = native.csr_arrays(g.adjacency, n)
+        start = np.ascontiguousarray(start, dtype=np.int64)
+        order = np.empty(n, dtype=np.int64)
+        counts = np.zeros(2, dtype=np.int64)
+        if lib.odgi_topological_order(2 * n, off.ctypes.data, len(tgt), tgt.ctypes.data,
+                                      len(start), start.ctypes.data, order.ctypes.data,
+                                      counts.ctypes.data) != n:
+            raise ValueError("the adjacency holds a handle not below 2N or an edge "
+                             "without its mirror")
+        seeded, restarts = int(counts[0]), int(counts[1])
+    count("topological_order.seeded", seeded)
+    count("topological_order.restarts", restarts)
+    return order
+
+
+def _kahn(g: GraphTensors, start: np.ndarray) -> tuple:
+    """(order, seeded, restarts) of the modified Kahn algorithm from the
+    ready nodes `start`, in Python."""
+    n = g.num_nodes
     if n == 0:
-        return np.empty(0, dtype=np.int64)
+        return np.empty(0, dtype=np.int64), 0, 0
     adj = g.adjacency
 
     masked: Set[tuple] = set()
@@ -88,12 +120,8 @@ def topological_order(
     seeds = _MinSet()
     unvisited = _MinSet()
 
-    if use_heads:
-        for r in head_nodes(g):
-            s.add(int(r))
-    elif use_tails:
-        for r in tail_nodes(g):
-            s.add(int(r))
+    for r in start:
+        s.add(int(r))
     for r in range(n):
         if r not in s:
             unvisited.add(r)
@@ -144,6 +172,4 @@ def topological_order(
                     elif nr not in seeds:
                         seeds.add(nr)
 
-    count("topological_order.seeded", seeded)
-    count("topological_order.restarts", restarts)
-    return np.asarray(sorted_out, dtype=np.int64)
+    return np.asarray(sorted_out, dtype=np.int64), seeded, restarts

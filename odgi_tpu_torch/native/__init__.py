@@ -1,6 +1,7 @@
 """The native GFA parser (``src/gfa_parse.cpp``), chunk schedule
-(``src/strata_schedule.cpp``) and step-table indexes
-(``src/strata_steps.cpp``), each built at first use.
+(``src/strata_schedule.cpp``), step-table indexes
+(``src/strata_steps.cpp``) and graph passes (``src/graph_passes.cpp``),
+each built at first use.
 
 The parser is a copy of ``odgi_tpu/native``'s C++ parser: one mmap pass
 over the file into flat arrays.  ``g++ -O3 -std=c++17`` builds it into
@@ -15,7 +16,12 @@ builds the same schedule in numpy.  So is the step-table library
 (``steps_lib()``), the first time a strata run indexes its steps (the
 first-visit order, the merge CSR, the block schedule); without it
 ``ops/strata_xxl.py`` and ``ops/strata_sgd.py`` build the same arrays in
-numpy.  ``steps_pass()`` counts which of the two each pass took.
+numpy.  ``steps_pass()`` counts which of the two each pass took.  The
+graph-pass library (``gs_lib()``) holds the groom walk and the topological
+order of a sort's ``g`` and ``s`` steps, built the first time either runs;
+without it ``algorithms/groom.py`` and ``algorithms/topological.py`` run
+the same passes in Python.  ``gs_pass()`` counts which of the two each call
+took.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from ..utils.metrics import TOTALS, count, timed
 SRC = Path(__file__).resolve().parent / "src" / "gfa_parse.cpp"
 SCHEDULE_SRC = SRC.with_name("strata_schedule.cpp")
 STEPS_SRC = SRC.with_name("strata_steps.cpp")
+GS_SRC = SRC.with_name("graph_passes.cpp")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
@@ -43,8 +50,11 @@ _lock = threading.Lock()
 _state: dict = {"lib": None, "tried": False, "error": None}
 _schedule: dict = {"lib": None, "tried": False, "error": None}
 _steps: dict = {"lib": None, "tried": False, "error": None}
+_gs: dict = {"lib": None, "tried": False, "error": None}
 # TOTALS names of the step-table passes, by the path each took
 STEPS_NATIVE, STEPS_NUMPY = "strata.steps_native", "strata.steps_numpy"
+# TOTALS names of the groom and topological-order calls, by the path each took
+GS_NATIVE, GS_PYTHON = "gs.native", "gs.python"
 
 
 class _GfaResult(ctypes.Structure):
@@ -81,8 +91,8 @@ def build(src: Path = SRC) -> Path:
     """Compile `src` (by default the parser) unless this key is built
     already; raises RuntimeError when g++ is missing or fails.  Timed as
     ``native.build`` (``utils.metrics.TOTALS``, the g++ runs as its
-    compiles), as are the first loads of `get_lib`, `schedule_lib` and
-    `steps_lib`."""
+    compiles), as are the first loads of `get_lib`, `schedule_lib`,
+    `steps_lib` and `gs_lib`."""
     so = library_path(src)
     if so.exists():
         return so
@@ -140,6 +150,14 @@ def _bind_steps(lib: ctypes.CDLL) -> None:
         fn.argtypes = args
 
 
+def _bind_gs(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int64
+    for fn, args in ((lib.odgi_groom, [i, p, i, p, i, p, p, p, p]),
+                     (lib.odgi_topological_order, [i, p, i, p, i, p, p, p])):
+        fn.restype = i
+        fn.argtypes = args
+
+
 def get_lib() -> Optional[ctypes.CDLL]:
     """The loaded parser (built on the first call), or None when it cannot
     be built or loaded."""
@@ -170,6 +188,31 @@ def steps_pass() -> Optional[ctypes.CDLL]:
     lib = steps_lib()
     count(STEPS_NATIVE if lib is not None else STEPS_NUMPY)
     return lib
+
+
+def gs_lib() -> Optional[ctypes.CDLL]:
+    """The loaded graph-pass library (built on the first call), or None
+    when it cannot be built or loaded (``_gs["error"]`` says why)."""
+    return _load(_gs, GS_SRC, _bind_gs)
+
+
+def gs_pass() -> Optional[ctypes.CDLL]:
+    """`gs_lib()` for one groom or topological-order call, counted as a run
+    of ``TOTALS[GS_NATIVE]``, or of ``TOTALS[GS_PYTHON]`` when the call
+    falls back to Python."""
+    lib = gs_lib()
+    count(GS_NATIVE if lib is not None else GS_PYTHON)
+    return lib
+
+
+def csr_arrays(adj, num_nodes: int) -> tuple:
+    """(offsets, targets) of the SideAdjacency `adj` of a graph of
+    `num_nodes` nodes, contiguous int64, for the graph passes; ValueError
+    unless there are 2N + 1 offsets."""
+    off = np.ascontiguousarray(adj.offsets, dtype=np.int64)
+    if off.shape != (2 * num_nodes + 1,):
+        raise ValueError(f"{len(off)} adjacency offsets for {num_nodes} nodes")
+    return off, np.ascontiguousarray(adj.targets, dtype=np.int64)
 
 
 def parse_gfa_native(path: str) -> Optional[GraphTensors]:
