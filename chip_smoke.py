@@ -6,25 +6,21 @@
 Phases, each printing one line or more:
   1. device: the card's name, the device count, nvidia-smi's name and
      power limit;
-  2. build: compile every csrc/*.cu (one nvcc each, all at once, beside
-     tools/levels_variants.py's barrier-only grid) and print ptxas's
-     registers, shared memory and spills per kernel, the grid-leveled
-     kernels' grid and the leveled kernels' clusters;
+  2. build: compile every csrc/*.cu (one nvcc each, all at once) and print
+     ptxas's registers, shared memory and spills per kernel and the leveled
+     kernels' clusters;
   3. the resident kernels against their plain PyTorch versions on the card,
      group by group over an iter_max=2 plan of the smoke graph (1D and 2D),
      with the stated tolerances; the leveled chunk kernels equal the chain
-     kernels strata_chunks_2d / _1d and the grid-leveled kernels
-     strata_chunks_2d/1d_levels_grid, and
-     strata_merge_sum equals the ascending-order loop
-     merge_sum_ordered_plain, bit for bit;
+     kernels strata_chunks_2d / _1d, and strata_merge_sum equals the
+     ascending-order loop merge_sum_ordered_plain, bit for bit;
   4. the smoke path at the default schedules through the entry points:
      synthetic GFA (1,500,000 steps = 30 paths x 50,000 steps over 10,000
      nodes) -> parse_gfa -> sort_pipeline("Ygs") -> layout_graph ->
      save_layout/load_layout (.lay) -> sum_of_path_node_distances, with the
      quality and plan gates (the resident route); the Y sort and the layout
-     again with their chunk phases forced onto the chain kernels, and again
-     onto the grid-leveled kernels, give the same order and
-     coordinates, bit for bit;
+     again with their chunk phases forced onto the chain kernels give the
+     same order and coordinates, bit for bit;
  4b. options, on the smoke graph of phase 4: the leveled kernels' tracking
      instances against the untracked kernels (bit-equal drift, timed in
      turns) and the plain versions (bit-equal Delta_max) on the first
@@ -53,23 +49,24 @@ Phases, each printing one line or more:
      without the program's strata.build and strata.run spans, fails) and
      the event-sum idle shares; then layout
      --metrics on the 1,000-step graph (batched: one record an iteration);
-  5. the stream kernels and the blocked sum against their plain versions
-     and against the resident kernels, the broadcast against its plain
-     version (bit for bit, beside the times of the designs it replaced),
-     and the leveled kernels against the chain kernels, on short plans (a
-     few hundred chunks a group) of the XL and the 1M-node graphs;
+  5. on short plans (a few hundred chunks a group) of the XL and the
+     1M-node graphs, on their own routes: the leveled kernels against the
+     chain kernels (bit for bit) and the plain versions, the blocked sum
+     against the CSR sum (bit for bit) and its plain version, and the
+     broadcast against its plain version (bit for bit, beside the times of
+     the designs it replaced);
   6. the XL path: 5,000,000 steps (100 paths x 50,000 over 10,000 nodes)
      -> sort_pipeline("Ygs") -> layout_graph -> .lay -> stats, on the "xl"
      route in 1D and 2D; the layout forced onto the "resident" route with
      the chain kernel gives the same coordinates, bit for bit; then the
-     leveled 1D and 2D kernels against the stream chain kernels on the
-     first groups of the full plans;
+     leveled 1D and 2D kernels against the chain kernels on the first
+     groups of the full plans;
   7. the 1M-node path (tools/bigscale_bench.py --shuffle --quality):
      10,000,000 steps (10 paths over 1,000,000 nodes) -> sort_pipeline("Y")
      and layout_graph on the "xxl" route, gated on BIGSCALE_r05.json's start
      values and quality, then sort_pipeline("gs") and a .lay round trip;
      then, on the first groups of the full 1D and 2D plans, the leveled
-     kernels against the stream chain kernels, and the blocked sum against
+     kernels against the chain kernels, and the blocked sum against
      the CSR sum (bit-equal) and one index_add_, each timed;
   8. the sharded path (odgi_tpu_torch.parallel.sharded_strata), after the XL
      path: the sorted smoke and XL graphs at 4 devices simulated on the
@@ -161,19 +158,14 @@ Every path runs with the launch counts set to 0 just before it and read
 just after; every SPIN_EVERY-th launch of a kernel on it is queued behind a
 spin kernel, so that its time holds the kernel alone; each prints the
 conflict levels of its 1D and 2D plans (depth, chunks a level, the
-grid-leveled kernels' waves a group, the leveled kernels' tiles a group,
-predecessors a chunk) and the host seconds that built the schedule
-(host_s.levels_1d / levels_2d).  Wherever the leveled kernels are held
-against the chain kernels (phases 3, 5, 6, 7 and 8), the grid-leveled
-kernel runs on the same group too, old and new timed in turns, and the
-barrier-only grid of tools/levels_variants.py once: the line "levels_old_vs_new" gives,
-path by path (smoke, XL, 1M, sharded), old and new ms a launch and the
-split of the old one into its grid barriers and the rest.  The line
-before the card line is one JSON object with every kernel's launches,
-error, times and bound (the chain and grid-leveled kernels, off the main
-path, with the times of their comparison launches); the last line is the
-ok/device object.  Any failed phase exits non-zero and prints no ok
-line.
+leveled kernels' tiles a group, predecessors a chunk) and the host seconds
+that built the schedule (host_s.levels_1d / levels_2d).  Wherever the
+leveled kernels are held against the chain kernels (phases 3, 5, 6, 7 and
+8), both are timed on the same group.  The line before the card line is
+one JSON object with every kernel's launches, error, times and bound (the
+chain kernels, off the main path, with the times of their comparison
+launches); the last line is the ok/device object.  Any failed phase exits
+non-zero and prints no ok line.
 """
 
 from __future__ import annotations
@@ -213,7 +205,7 @@ from odgi_tpu_torch.io import gfa as gfa_io
 from odgi_tpu_torch.io import og as og_io
 from odgi_tpu_torch.io import png
 from odgi_tpu_torch.ops import (batched_sgd, kernels, sgd, strata_levels, strata_plan,
-                                strata_route, strata_sgd, strata_xl, strata_xxl)
+                                strata_route, strata_sgd, strata_xxl)
 from odgi_tpu_torch.ops.sgd import derive_config_1d, derive_config_2d
 from odgi_tpu_torch.parallel import sharded, sharded_strata
 
@@ -263,25 +255,17 @@ SPIN_EVERY = 20                # every 20th launch of a kernel on a counted path
 
 RESIDENT = ("strata_chunks_2d", "strata_chunks_1d", "strata_merge_sum",
             "strata_merge_bcast")
-STREAM = ("strata_chunks_2d_stream", "strata_chunks_1d_stream")
 BLOCKED = ("strata_merge_sum_blocked",)
 LEVELS_2D, LEVELS_1D = "strata_chunks_2d_levels", "strata_chunks_1d_levels"
 LEVELS = {False: LEVELS_2D, True: LEVELS_1D}  # by one_d
 # The leveled kernels' tracking instances (delta early stop), counted apart.
 TRACK_2D, TRACK_1D = kernels.TRACKED[LEVELS_2D], kernels.TRACKED[LEVELS_1D]
 TRACKS = {False: TRACK_2D, True: TRACK_1D}
-# The chain kernels: off the main path, launched only to hold the leveled
-# kernels bit-equal and to time old against new.
-CHAIN = ("strata_chunks_2d", "strata_chunks_2d_stream", "strata_chunks_1d",
-         "strata_chunks_1d_stream")
-# The grid-barrier leveled kernels, the design the leveled kernels replaced:
-# off the main path too, launched only to hold the leveled kernels bit-equal
-# and to time old against new.
-GRID_2D, GRID_1D = "strata_chunks_2d_levels_grid", "strata_chunks_1d_levels_grid"
-GRIDS = {False: GRID_2D, True: GRID_1D}  # by one_d
-OFF_PATH = CHAIN + (GRID_2D, GRID_1D)
-CHAIN_OF = {(False, False): "strata_chunks_2d", (False, True): "strata_chunks_2d_stream",
-            (True, False): "strata_chunks_1d", (True, True): "strata_chunks_1d_stream"}
+# The chain kernels: the leveled kernels' reference, off the main path,
+# launched only to hold the leveled kernels bit-equal and to time them
+# beside them.
+CHAINS = {False: "strata_chunks_2d", True: "strata_chunks_1d"}  # by one_d
+CHAIN = tuple(CHAINS.values())
 ROUTE_KERNELS = {
     "resident": (LEVELS_2D, LEVELS_1D, "strata_merge_sum", "strata_merge_bcast"),
     "xl": (LEVELS_2D, LEVELS_1D, "strata_merge_sum", "strata_merge_bcast"),
@@ -474,19 +458,13 @@ REPLACES = {
     "strata_chunks_1d": "odgi_tpu/ops/pallas_sgd.py:1158",
     "strata_merge_sum": "odgi_tpu/ops/pallas_sgd.py:922",
     "strata_merge_bcast": "odgi_tpu/ops/pallas_sgd.py:922",
-    "strata_chunks_2d_stream": "odgi_tpu/ops/pallas_sgd_xl.py:363",
-    "strata_chunks_1d_stream": "odgi_tpu/ops/pallas_sgd_xl.py:795",
     "strata_merge_sum_blocked": "odgi_tpu/ops/pallas_sgd_xxl.py:212",
     LEVELS_2D: "odgi_tpu/ops/pallas_sgd.py:1105",
     LEVELS_1D: "odgi_tpu/ops/pallas_sgd.py:1158",
     TRACK_2D: "odgi_tpu/ops/pallas_sgd.py:1105",
     TRACK_1D: "odgi_tpu/ops/pallas_sgd.py:1158",
-    GRID_2D: "odgi_tpu/ops/pallas_sgd.py:1105",
-    GRID_1D: "odgi_tpu/ops/pallas_sgd.py:1158",
 }
 ALSO_REPLACES = {
-    "strata_chunks_2d_stream": ["odgi_tpu/ops/pallas_sgd_xxl.py:212"],
-    "strata_chunks_1d_stream": ["odgi_tpu/ops/pallas_sgd_xxl.py:632"],
     "strata_merge_sum_blocked": ["odgi_tpu/ops/pallas_sgd_xxl.py:632"],
     LEVELS_2D: ["odgi_tpu/ops/pallas_sgd_xl.py:363", "odgi_tpu/ops/pallas_sgd_xxl.py:212",
                 "odgi_tpu/parallel/sharded_pallas.py:60"],
@@ -497,8 +475,6 @@ ALSO_REPLACES = {
                            "odgi_tpu/parallel/sharded_pallas.py:60"],
     LEVELS_1D: ["odgi_tpu/ops/pallas_sgd_xl.py:795", "odgi_tpu/ops/pallas_sgd_xxl.py:632"],
 }
-ALSO_REPLACES[GRID_2D] = ALSO_REPLACES[LEVELS_2D]
-ALSO_REPLACES[GRID_1D] = ALSO_REPLACES[LEVELS_1D]
 # The broadcast designs strata_merge_bcast replaced, as this script timed
 # them (spin-first launches) on the 1M-node graph's merges before the
 # redesign, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6): the blocked
@@ -509,16 +485,11 @@ REPLACED_BCAST_MS = {"1d": dict(blocked=0.18882, one_thread_a_slot=0.07219),
 # index_add_), timed as a yardstick only.
 LIBRARY = ("strata_merge_sum", "strata_merge_sum_blocked")
 SOURCES = {**{n: "odgi_tpu_torch/csrc/strata_sgd.cu" for n in RESIDENT},
-           **{n: "odgi_tpu_torch/csrc/strata_stream.cu" for n in STREAM},
            **{n: "odgi_tpu_torch/csrc/strata_blocked.cu" for n in BLOCKED},
            LEVELS_2D: "odgi_tpu_torch/csrc/strata_levels.cu",
            LEVELS_1D: "odgi_tpu_torch/csrc/strata_levels.cu",
            TRACK_2D: "odgi_tpu_torch/csrc/strata_levels.cu",
-           TRACK_1D: "odgi_tpu_torch/csrc/strata_levels.cu",
-           GRID_2D: "odgi_tpu_torch/csrc/strata_levels.cu",
-           GRID_1D: "odgi_tpu_torch/csrc/strata_levels.cu"}
-# "barrier_only": tools/levels_variants.py's barrier-only grid, loaded in main
-SPLIT = {}
+           TRACK_1D: "odgi_tpu_torch/csrc/strata_levels.cu"}
 
 
 def fail(msg: str) -> None:
@@ -666,7 +637,7 @@ def touched_slots(od: np.ndarray, g0: int, cgs: int) -> int:
 def chunk_bounds(p: dict, one_d: bool) -> list:
     """Per group.  Bytes: per touched slot, the i32 planes read (2D: pos,
     pos_end, path; 1D: pos, path), the f32 base read, the f32 drift read and
-    written; plus (o, D) per chunk (and its sync flag on the stream route).
+    written; plus 12 bytes a chunk (its o and D and a schedule word).
     Operations: about 25 f32 operations per pair."""
     od = np.stack([p["o_blk"], p["d_arr"]], axis=1)
     per_slot = 20 if one_d else 60
@@ -727,9 +698,8 @@ def schedule_stats(g, one_d: bool) -> dict:
 class Record:
     """Errors, plain and library times of the comparison phases; launch
     times of the counted paths (events; spun: those behind a spin kernel);
-    bounds per counted launch; times and bounds of the off-path kernels'
-    comparison launches (cmp_ms, cmp_bounds); per path, each compared
-    group's leveled, grid-leveled and barrier-only times (old_new)."""
+    bounds per counted launch; times and bounds of the chain kernels'
+    comparison launches (cmp_ms, cmp_bounds)."""
 
     def __init__(self):
         self.err = {n: {} for n in kernels.NAMES}
@@ -739,17 +709,11 @@ class Record:
         self.spun = {n: {} for n in kernels.NAMES}
         self.bounds = {n: {} for n in kernels.NAMES}
         self.launches = {n: {} for n in kernels.NAMES}
-        self.cmp_ms = {n: {} for n in OFF_PATH}
-        self.cmp_bounds = {n: {} for n in OFF_PATH}
-        self.old_new = {}
+        self.cmp_ms = {n: {} for n in CHAIN}
+        self.cmp_bounds = {n: {} for n in CHAIN}
 
     def add(self, table: str, name: str, key: str, value) -> None:
         getattr(self, table)[name].setdefault(key, []).append(value)
-
-
-def sync_of(st) -> torch.Tensor:
-    """The sync flags the stream chain kernels read, for the state's plan."""
-    return torch.as_tensor(strata_xl.sync_flags(st.plan), device=st.od.device)
 
 
 def run_levels(st, gid: int, drift) -> None:
@@ -760,21 +724,11 @@ def run_levels(st, gid: int, drift) -> None:
                                        st.perm, st.lvl_rows[gid], st.pred_off, st.pred)
 
 
-def run_grid(st, gid: int, drift) -> None:
-    """Group `gid` through the grid-leveled kernel, in place on
-    `drift`."""
-    getattr(kernels, GRIDS[st.one_d])(drift, st.base, st.planes, st.od, st.eta,
-                                      st.plan["cpi"], st.perm, st.lvl_rows[gid])
-
-
-def run_chain(st, gid: int, drift, chain: str, sync=None) -> None:
-    """Group `gid` through the chain kernel `chain`, in place on `drift`."""
+def run_chain(st, gid: int, drift) -> None:
+    """Group `gid` through the state's chain kernel, in place on `drift`."""
     p = st.plan
-    tail = (st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
-    if chain.endswith("_stream"):
-        getattr(kernels, chain)(drift, st.base, st.planes, st.od, sync, *tail)
-    else:
-        getattr(kernels, chain)(drift, st.base, st.planes, st.od, *tail)
+    getattr(kernels, CHAINS[st.one_d])(drift, st.base, st.planes, st.od, st.eta, p["cpi"],
+                                       gid * p["cgs"], p["cgs"])
 
 
 def library_merge_sum(st) -> float:
@@ -815,56 +769,36 @@ def rel_err(a, b, scale: float) -> float:
 
 def level_stats(p: dict, lvl_off: np.ndarray, pred_off: np.ndarray) -> dict:
     """Depth of each group's levels (min, mean, max), chunks a level, the
-    waves a group of the grid-leveled kernel (a level of n chunks runs
-    ceil(n / grid blocks) waves), the tiles a group of the leveled kernel
-    (a chunk is a cluster's tiles), predecessors a chunk, and the share of
-    chunks with D < CHUNK (whose tiles meet at cluster barriers)."""
+    tiles a group of the leveled kernel (a chunk is a cluster's tiles),
+    predecessors a chunk, and the share of chunks with D < CHUNK (whose
+    tiles meet at cluster barriers)."""
     depth = strata_levels.depths(lvl_off)
-    one_d = p["data"].one_d
-    grid = kernels.levels_grid_blocks(one_d)
-    clusters, tiles = kernels.levels_clusters(one_d)
-    waves = np.ceil(np.diff(lvl_off, axis=1) / grid).sum(axis=1)
+    clusters, tiles = kernels.levels_clusters(p["data"].one_d)
     return dict(groups=int(p["groups"]), cgs=int(p["cgs"]), depth_min=int(depth.min()),
                 depth_mean=float(depth.mean()), depth_max=int(depth.max()),
-                chunks_per_level=float(p["cgs"] / depth.mean()),
-                grid_blocks=grid, waves_per_group=float(waves.mean()), clusters=clusters,
+                chunks_per_level=float(p["cgs"] / depth.mean()), clusters=clusters,
                 tiles_per_chunk=tiles, tiles_per_group=int(p["cgs"]) * tiles,
                 preds_per_chunk=float(pred_off[-1] / (len(pred_off) - 1)),
                 d_below_chunk=float((p["d_arr"] < strata_plan.CHUNK).mean()))
 
 
-def compare_levels(st, gid: int, rec: Record, key: str, chain: str, sync=None,
-                   record: bool = True) -> dict:
-    """Group `gid` of a state through its leveled kernel, the chain kernel
-    `chain` and the grid-leveled kernel on the same inputs: torch.equal
-    drift, or fail.  With `record` (groups of a main path's size) old and
-    new are timed in turns (new, chain, old, old, new) and the barrier-only
-    grid of tools/levels_variants.py once, each group's times going to
-    rec.old_new[key], and the chain's and the grid kernel's times and
-    bounds to the comparison records.  Returns the leveled drift and the
-    times."""
-    name, grid = LEVELS[st.one_d], GRIDS[st.one_d]
-    d_l, d_c, d_g = st.drift.clone(), st.drift.clone(), st.drift.clone()
-    l_ms = [timed(run_levels, st, gid, d_l)]
-    c_ms = timed(run_chain, st, gid, d_c, chain, sync)
-    g_ms = [timed(run_grid, st, gid, d_g)]
-    for d, other in ((d_c, chain), (d_g, grid)):
-        if not torch.equal(d_l, d):
-            fail(f"{name} {key} group {gid}: differs from {other} "
-                 f"(max {float((d_l - d).abs().max()):.3e})")
-    levels = int(st.lvl_rows[gid].shape[0] - 1)
-    out = dict(drift=d_l, levels_ms=l_ms[0], chain_ms=c_ms, grid_ms=g_ms[0], levels=levels)
+def compare_levels(st, gid: int, rec: Record, key: str, record: bool = True) -> dict:
+    """Group `gid` of a state through its leveled kernel and its chain
+    kernel on the same inputs: torch.equal drift, or fail.  With `record`
+    (groups of a main path's size) the chain's time and bound go to the
+    comparison records.  Returns the leveled drift and both times."""
+    name, chain = LEVELS[st.one_d], CHAINS[st.one_d]
+    d_l, d_c = st.drift.clone(), st.drift.clone()
+    l_ms = timed(run_levels, st, gid, d_l)
+    c_ms = timed(run_chain, st, gid, d_c)
+    if not torch.equal(d_l, d_c):
+        fail(f"{name} {key} group {gid}: differs from {chain} "
+             f"(max {float((d_l - d_c).abs().max()):.3e})")
     if record:
-        g_ms.append(timed(run_grid, st, gid, st.drift.clone()))
-        l_ms.append(timed(run_levels, st, gid, st.drift.clone()))
-        rec.old_new.setdefault(key, []).append(dict(
-            group=gid, levels=levels, new_ms=sum(l_ms) / 2, grid_ms=sum(g_ms) / 2,
-            barrier_only_ms=timed(SPLIT["barrier_only"], st, gid)))
-        bound = chunk_bounds(st.plan, st.one_d)[gid]
-        for n, ms in ((chain, c_ms), (grid, g_ms[0])):
-            rec.add("cmp_ms", n, key, ms)
-            rec.add("cmp_bounds", n, key, bound)
-    return out
+        rec.add("cmp_ms", chain, key, c_ms)
+        rec.add("cmp_bounds", chain, key, chunk_bounds(st.plan, st.one_d)[gid])
+    return dict(drift=d_l, levels_ms=l_ms, chain_ms=c_ms,
+                levels=int(st.lvl_rows[gid].shape[0] - 1))
 
 
 def compare_group(st, gid: int, rec: Record, key: str) -> None:
@@ -875,8 +809,8 @@ def compare_group(st, gid: int, rec: Record, key: str) -> None:
     p = st.plan
     args = (st.base, st.planes, st.od, st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
     scale = float(st.base.abs().max()) + 1.0
-    name, chain = LEVELS[st.one_d], CHAIN_OF[(st.one_d, False)]
-    lv = compare_levels(st, gid, rec, key, chain)
+    name, chain = LEVELS[st.one_d], CHAINS[st.one_d]
+    lv = compare_levels(st, gid, rec, key)
     d_k = lv["drift"]
     line = dict(key=key, group=gid, chunk_ms=lv["levels_ms"], chain_chunk_ms=lv["chain_ms"],
                 levels=lv["levels"])
@@ -884,7 +818,7 @@ def compare_group(st, gid: int, rec: Record, key: str) -> None:
     plain = strata_sgd.chunks_1d_plain if st.one_d else strata_sgd.chunks_2d_plain
     p_ms = timed(plain, d_p, *args)
     err = float((d_k - d_p).abs().max())
-    for n in (name, chain, GRIDS[st.one_d]):  # equal drift
+    for n in (name, chain):  # equal drift
         rec.add("err", n, key, err)
         rec.add("plain_ms", n, key, p_ms)
     if not err / scale <= CHUNK_TOL:
@@ -946,7 +880,7 @@ def compare_bcast(st, drift, upd, rec: Record, key: str, label: str):
     return d_k, b_k, b_ms, bp_ms
 
 
-def warm_up(st, sync=None) -> None:
+def warm_up(st) -> None:
     """One untimed call of every kernel and plain version of the state's
     route (and of the chain kernels) on copies, so that no timed call pays
     for first-use set-up."""
@@ -959,17 +893,10 @@ def warm_up(st, sync=None) -> None:
     plain(st.drift.clone(), *args, *tail)
     getattr(kernels, LEVELS[st.one_d])(st.drift.clone(), *args, st.eta, p["cpi"], st.perm,
                                        st.lvl_rows[0][:2], st.pred_off, st.pred)
-    getattr(kernels, GRIDS[st.one_d])(st.drift.clone(), *args, st.eta, p["cpi"], st.perm,
-                                      st.lvl_rows[0][:2])
-    SPLIT["barrier_only"](st, 0)
     for merge in (kernels.strata_merge_sum, strata_sgd.merge_sum_plain):
         merge(st.drift, st.mi, st.coords.clone(), st.upd.clone())
     for bcast in (kernels.strata_merge_bcast, strata_sgd.merge_bcast_plain):
         bcast(st.drift.clone(), st.base.clone(), st.mi, st.upd)
-    if sync is not None:
-        stream = (kernels.strata_chunks_1d_stream if st.one_d
-                  else kernels.strata_chunks_2d_stream)
-        stream(st.drift.clone(), *args, sync, *tail)
     if st.route == "xxl":
         kernels.strata_merge_sum_blocked(st.drift, st.mi, st.bsch, st.coords.clone(),
                                          st.upd.clone())
@@ -990,57 +917,45 @@ def phase_kernels(g, dev, rec: Record) -> None:
     torch.cuda.synchronize()
     say("kernels_vs_plain", **{n: dict(max_abs_err=max(x for v in rec.err[n].values()
                                                        for x in v))
-                               for n in RESIDENT + (LEVELS_2D, LEVELS_1D, GRID_2D, GRID_1D)})
+                               for n in RESIDENT + (LEVELS_2D, LEVELS_1D)})
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the stream and blocked kernels against their plain versions and
-# against the resident kernels
+# Phase 5: the leveled, chain and blocked kernels of the XL and XXL routes
+# against their plain versions
 # ---------------------------------------------------------------------------
 
 
-def compare_stream_group(st, gid: int, rec: Record, key: str, sync) -> None:
-    """Group `gid` through the stream chunk kernel, the resident chunk
-    kernel and the plain version on the same inputs; the stream kernel must
-    equal the resident one exactly and the plain one within CHUNK_TOL, and
-    the leveled kernel must equal them exactly.  On the "xxl" route the
-    same for the blocked merges (the plain versions on group 0 only), and
-    the CSR sum must equal merge_sum_ordered_plain.  Continues from the
-    new kernels' state."""
+def compare_route_group(st, gid: int, rec: Record, key: str) -> None:
+    """Group `gid` through the leveled chunk kernel, the chain kernel and
+    the plain version on the same inputs; the leveled kernel must equal the
+    chain kernel exactly and the plain one within CHUNK_TOL.  On the "xxl"
+    route the blocked sum must equal the CSR sum exactly and its plain
+    version within MERGE_TOL (the plain version on group 0 only), and the
+    CSR sum must equal merge_sum_ordered_plain.  Continues from the
+    kernels' state."""
     p = st.plan
-    args = (st.base, st.planes, st.od)
-    tail = (st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
+    args = (st.base, st.planes, st.od, st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
     scale = float(st.base.abs().max()) + 1.0
-    name, resident_name = CHAIN_OF[(st.one_d, True)], CHAIN_OF[(st.one_d, False)]
-    stream, resident = getattr(kernels, name), getattr(kernels, resident_name)
+    name = LEVELS[st.one_d]
     plain = strata_sgd.chunks_1d_plain if st.one_d else strata_sgd.chunks_2d_plain
-    d_s, d_r, d_p = st.drift.clone(), st.drift.clone(), st.drift.clone()
-    s_ms = timed(stream, d_s, *args, sync, *tail)
-    r_ms = timed(resident, d_r, *args, *tail)
-    p_ms = timed(plain, d_p, *args, *tail)
-    if not torch.equal(d_s, d_r):
-        fail(f"{name} {key} group {gid}: differs from the resident kernel "
-             f"(max {float((d_s - d_r).abs().max()):.3e})")
-    err = float((d_s - d_p).abs().max())
-    rec.add("err", name, key, err)
-    rec.add("plain_ms", name, key, p_ms)
-    if not err / scale <= CHUNK_TOL:
-        fail(f"{name} {key} group {gid}: max|drift delta|/scale {err / scale:.3e} > {CHUNK_TOL}")
-    line = dict(key=key, group=gid, chunk_ms=s_ms, resident_chunk_ms=r_ms, chunk_plain_ms=p_ms,
-                sync_ones=int(sync[gid * p["cgs"]:(gid + 1) * p["cgs"]].sum()), cgs=p["cgs"])
-    lv = compare_levels(st, gid, rec, key, resident_name, record=False)
-    if not torch.equal(lv["drift"], d_s):
-        fail(f"{LEVELS[st.one_d]} {key} group {gid}: differs from {name}")
-    for n in (LEVELS[st.one_d], GRIDS[st.one_d]):
+    lv = compare_levels(st, gid, rec, key, record=False)
+    d_p = st.drift.clone()
+    p_ms = timed(plain, d_p, *args)
+    err = float((lv["drift"] - d_p).abs().max())
+    for n in (name, CHAINS[st.one_d]):  # equal drift
         rec.add("err", n, key, err)
         rec.add("plain_ms", n, key, p_ms)
-    line.update(levels_chunk_ms=lv["levels_ms"], grid_chunk_ms=lv["grid_ms"],
-                levels=lv["levels"])
-    st.drift = d_s
+    if not err / scale <= CHUNK_TOL:
+        fail(f"{name} {key} group {gid}: max|drift delta|/scale {err / scale:.3e} > {CHUNK_TOL}")
+    line = dict(key=key, group=gid, levels_chunk_ms=lv["levels_ms"],
+                chain_chunk_ms=lv["chain_ms"], chunk_plain_ms=p_ms, levels=lv["levels"],
+                cgs=p["cgs"])
+    st.drift = lv["drift"]
 
     if st.route != "xxl":  # the XL route merges with the CSR kernels
         ms = compare_merges(st, gid, rec, key)
-        say("stream_vs_plain", **line, **dict(zip(
+        say("route_vs_plain", **line, **dict(zip(
             ("sum_ms", "sum_plain_ms", "bcast_ms", "bcast_plain_ms"), ms)))
         return
 
@@ -1069,10 +984,10 @@ def compare_stream_group(st, gid: int, rec: Record, key: str, sync) -> None:
         st, st.drift, u_b, rec, key, f"group {gid}")
     line["replaced_bcast_ms"] = REPLACED_BCAST_MS[key.split("/")[1]]
     st.drift, st.base, st.coords, st.upd = d_b, b_b, c_b, u_b
-    say("stream_vs_plain", **line)
+    say("route_vs_plain", **line)
 
 
-def phase_stream_kernels(g, label: str, route: str, dev, rec: Record) -> None:
+def phase_route_kernels(g, label: str, route: str, dev, rec: Record) -> None:
     for one_d in (True, False):
         key = f"{label}/{'1d' if one_d else '2d'}"
         if one_d:
@@ -1082,10 +997,9 @@ def phase_stream_kernels(g, label: str, route: str, dev, rec: Record) -> None:
             cfg = derive_config_2d(g, iter_max=2, min_term_updates=SHORT_TERMS)
             init = ot.init_layout(g, "d")
         st = strata_sgd.StrataState.build(g, cfg, init, one_d, dev, route)
-        sync = sync_of(st)
-        warm_up(st, sync)
+        warm_up(st)
         for gid in range(st.plan["groups"]):
-            compare_stream_group(st, gid, rec, key, sync)
+            compare_route_group(st, gid, rec, key)
         if not bool(torch.isfinite(st.coords).all()):
             fail(f"{key} coordinates not finite after the comparison run")
         del st
@@ -1130,15 +1044,11 @@ class KernelTimes:
         dim = {
             "strata_chunks_2d": lambda a: "2d",
             "strata_chunks_1d": lambda a: "1d",
-            "strata_chunks_2d_stream": lambda a: "2d",
-            "strata_chunks_1d_stream": lambda a: "1d",
             "strata_merge_sum": lambda a: "1d" if a[2].shape[0] == 1 else "2d",
             "strata_merge_bcast": lambda a: "1d" if a[3].shape[0] == 1 else "2d",
             "strata_merge_sum_blocked": lambda a: "1d" if a[3].shape[0] == 1 else "2d",
             LEVELS_2D: lambda a: "2d",
             LEVELS_1D: lambda a: "1d",
-            GRID_2D: lambda a: "2d",
-            GRID_1D: lambda a: "1d",
         }
         for n in kernels.SIGNATURES:
             setattr(kernels, n, wrap(n, self.orig[n], dim[n]))
@@ -1276,7 +1186,7 @@ def run_on_chain(fn, rec: Record, key: str, p: dict, one_d: bool = False):
     chain kernel strata_chunks_2d / _1d (the chunks each group's levels
     cover, in chain order); each chain launch's time and bound go to the
     comparison records under `key`.  `p` is the plan `fn` runs."""
-    attr, chain_name = LEVELS[one_d], CHAIN_OF[(one_d, False)]
+    attr, chain_name = LEVELS[one_d], CHAINS[one_d]
     leveled = getattr(kernels, attr)
     bounds = chunk_bounds(p, one_d)
     launched = []
@@ -1301,22 +1211,6 @@ def run_on_chain(fn, rec: Record, key: str, p: dict, one_d: bool = False):
         rec.add("cmp_ms", chain_name, key, t.ms())
         rec.add("cmp_bounds", chain_name, key, b)
     return out
-
-
-def run_on_grid(fn, one_d: bool = False):
-    """Run `fn` with the chunk phase of its dimension on the
-    grid-leveled kernel in place of the leveled kernel (uncounted)."""
-    attr = LEVELS[one_d]
-    leveled, grid = getattr(kernels, attr), getattr(kernels, GRIDS[one_d])
-
-    def old(drift, base, planes, od, eta, cpi, perm, lvl_off, pred_off, pred):
-        grid(drift, base, planes, od, eta, cpi, perm, lvl_off)
-
-    setattr(kernels, attr, old)
-    try:
-        return fn()
-    finally:
-        setattr(kernels, attr, leveled)
 
 
 # ---------------------------------------------------------------------------
@@ -1385,20 +1279,11 @@ def phase_smoke(gfa_path: str, tmp: str, dev, rec: Record) -> tuple:
     chain = run_on_chain(lambda: ot.layout_graph(g2, device=dev), rec, "smoke/2d", p2)
     out["layout_chain_s"] = sync_wall(t0)
     out["chain_equal"] = bool(np.array_equal(chain, coords))
-    # and on the grid-leveled kernels: the same again
-    g_gr = run_on_grid(lambda: ot.sort_pipeline(g, "Y", device=dev), one_d=True)
-    out["sort_Y_grid_equal"] = bool(np.array_equal(g_lv.node_id, g_gr.node_id)
-                                    and np.array_equal(g_lv.step_handle, g_gr.step_handle))
-    out["grid_equal"] = bool(np.array_equal(
-        run_on_grid(lambda: ot.layout_graph(g2, device=dev)), coords))
     say("main_path", path="smoke", **out, twin=TWIN)
     if not out["sort_Y_chain_equal"]:
         fail("smoke Y sort differs from the same sort on the chain kernel")
     if not out["chain_equal"]:
         fail(f"smoke layout differs from the chain kernel's (max {np.abs(chain - coords).max()})")
-    if not (out["sort_Y_grid_equal"] and out["grid_equal"]):
-        fail(f"smoke Y sort / layout differ from the same on the grid-leveled kernels: "
-             f"{out['sort_Y_grid_equal']} / {out['grid_equal']}")
 
     if not np.isfinite(coords).all():
         fail("layout coordinates not finite")
@@ -2651,19 +2536,17 @@ def compare_sums(st) -> dict:
 
 def full_groups(g, cfg, init, one_d: bool, route: str, key: str, dev, rec: Record) -> None:
     """The first FULL_GROUPS groups of a full plan (the main path's) through
-    the leveled kernel and the stream chain
-    kernel on the route's state: bit-equal drift; the chain's times go to
-    the comparison records.  On the "xxl" route each group's merge input
-    also goes through `compare_sums`."""
+    the leveled kernel and the chain kernel on the route's state: bit-equal
+    drift; the chain's times go to the comparison records.  On the "xxl"
+    route each group's merge input also goes through `compare_sums`."""
     t0 = time.perf_counter()
     st = strata_sgd.StrataState.build(g, cfg, init, one_d, dev, route)
-    sync = sync_of(st)
     build_s = time.perf_counter() - t0
-    warm_up(st, sync)
+    warm_up(st)
     for gid in range(FULL_GROUPS):
-        lv = compare_levels(st, gid, rec, key, CHAIN_OF[(one_d, True)], sync=sync)
+        lv = compare_levels(st, gid, rec, key)
         line = dict(key=key, group=gid, cgs=st.plan["cgs"], levels=lv["levels"],
-                    levels_ms=lv["levels_ms"], grid_ms=lv["grid_ms"], chain_ms=lv["chain_ms"],
+                    levels_ms=lv["levels_ms"], chain_ms=lv["chain_ms"],
                     state_build_s=build_s)
         st.drift = lv["drift"]
         if route == "xxl":
@@ -3283,22 +3166,6 @@ def phase_library(tmp: str, g_ref, rec: Record) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def old_new_line(rec: Record) -> dict:
-    """Per path and dimension, over its compared groups: the leveled
-    kernel's and the grid-leveled kernel's ms a launch (timed in turns
-    in one call), and the split of the grid kernel's time: its grid barriers
-    alone (the barrier-only grid) and the rest (the chunks and their
-    waves)."""
-    out = {}
-    for key, rows in sorted(rec.old_new.items()):
-        mean = lambda f: sum(r[f] for r in rows) / len(rows)
-        new, grid, barrier = mean("new_ms"), mean("grid_ms"), mean("barrier_only_ms")
-        out[key] = dict(groups=len(rows), levels=mean("levels"), new_ms=new, grid_ms=grid,
-                        new_over_grid=new / grid, barrier_only_ms=barrier,
-                        grid_chunks_ms=grid - barrier, barrier_share_of_grid=barrier / grid)
-    return out
-
-
 def kernel_line(rec: Record) -> dict:
     """One record per kernel: launches and mean time per launch over every
     counted path, the bound of those launches, and the plain version's and
@@ -3315,7 +3182,7 @@ def kernel_line(rec: Record) -> dict:
         common = dict(name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],
                       also_replaces=ALSO_REPLACES.get(n),
                       max_abs_err=max(x for v in rec.err[n].values() for x in v))
-        if n in OFF_PATH:
+        if n in CHAIN:
             if rec.events[n] or rec.launches[n]:
                 fail(f"{n}: launched on a counted path {rec.launches[n]}")
             per_path = {}
@@ -3376,20 +3243,12 @@ def main() -> int:
     say("device", name=name, count=count, nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda)
 
-    from tools import levels_variants
-
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as split_dir:
-        split = levels_variants.build_variants(split_dir)
-        kernels.build()
-        lib = levels_variants.load_variants(split, split_dir)
-    SPLIT["barrier_only"] = lambda st, gid: levels_variants.barrier_only(lib, st, gid)
+    kernels.build()
     build_s = time.perf_counter() - t0
     report = [ln.strip() for ln in kernels.ptxas_report().splitlines()
               if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
     say("build", seconds=build_s, ptxas=report,
-        levels_grid_blocks={"2d": kernels.levels_grid_blocks(),
-                            "1d": kernels.levels_grid_blocks(one_d=True)},
         levels_clusters={"2d": kernels.levels_clusters(),
                          "1d": kernels.levels_clusters(one_d=True)})
 
@@ -3417,8 +3276,8 @@ def main() -> int:
         for label, g in (("xl", g_xl), ("big", g_big)):
             say("schedule", graph=label, **{tag: schedule_stats(g, one_d)
                                             for tag, one_d in (("1d", True), ("2d", False))})
-        phase_stream_kernels(g_xl, "xl", "xl", dev, rec)
-        phase_stream_kernels(g_big, "big", "xxl", dev, rec)
+        phase_route_kernels(g_xl, "xl", "xl", dev, rec)
+        phase_route_kernels(g_big, "big", "xxl", dev, rec)
         xl, g_xl2 = phase_xl(g_xl, tmp, dev, rec)
         phase_sharded("smoke", g_smoke, smoke["stress_after"], dev, rec, one_device=True)
         phase_sharded("xl", g_xl2, xl["stress_after"], dev, rec)
@@ -3433,7 +3292,6 @@ def main() -> int:
         phase_positions(tmp, dev, rec)
         phase_library(tmp, g_smoke, rec)
 
-    say("levels_old_vs_new", card=smi, per_path=old_new_line(rec))
     print(json.dumps(kernel_line(rec)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

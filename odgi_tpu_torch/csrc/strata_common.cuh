@@ -1,9 +1,8 @@
 // Definitions shared by the strata PG-SGD kernels (strata_sgd.cu,
-// strata_stream.cu, strata_blocked.cu, strata_levels.cu): the coin hash and
-// the bodies that run a chunk's pairs.
-// - chunk_2d / chunk_1d: a whole chunk on one block, as the chain kernels always ran them
-//   (the chain kernels and the grid-leveled kernels; unchanged, so
-//   those kernels compile as they did).
+// strata_blocked.cu, strata_levels.cu): the coin hash and the bodies that
+// run a chunk's pairs.
+// - chunk_2d / chunk_1d: a whole chunk on one block, as the chain kernels
+//   run them.
 // - tile_2d / tile_1d and their _apart forms: the leveled kernels' tile of
 //   a chunk, one block of a thread-block cluster, the same arithmetic split
 //   at the point where it first reads drift (pair_*_ro, pair_*_rw), so that
@@ -17,7 +16,6 @@ namespace strata {
 
 constexpr int LANE = 128;
 constexpr int CHUNK = 4096;  // pairs per chunk (one shared jump distance)
-constexpr int TILE = 4096;   // slots per merge tile (TR * LANE)
 
 // The reference's per-pair coin hash (odgi_tpu/ops/pallas_sgd.py
 // _pair_coins) in uint32 arithmetic: i = pair index, sel = 0 for side a,

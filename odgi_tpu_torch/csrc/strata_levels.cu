@@ -5,12 +5,12 @@
 // three 2D kernel families: _chunk_2d (odgi_tpu/ops/pallas_sgd.py:704)
 // inside _make_kernel_2d (:1105), and the chunk phases of _make_kernel_xl
 // (pallas_sgd_xl.py:363) and _make_kernel_xxl (pallas_sgd_xxl.py:212).  It
-// gives the drift of strata_chunks_2d / strata_chunks_2d_stream bit for bit.
+// gives the drift of the chain kernel strata_chunks_2d bit for bit.
 // strata_chunks_1d_levels replaces the 1D chunk phase the same way:
 // _chunk_1d (pallas_sgd.py:786) inside _make_kernel_1d (:1158), and
 // _run_chunks_1d (pallas_sgd_xl.py:672) inside _make_kernel_xl_1d (:795) and
 // _make_kernel_xxl_1d (pallas_sgd_xxl.py:632); it gives the drift of
-// strata_chunks_1d / strata_chunks_1d_stream bit for bit.
+// strata_chunks_1d bit for bit.
 //
 // Why it is bit-exact.  The chunks of a merge group compound in order, but
 // two chunks whose slot footprints (the 128-slot blocks of their A and B
@@ -31,12 +31,12 @@
 // planes' sectors) where its pairs use 196 KB; a 1D chunk 131 KB.  The
 // bytes bound counts each slot a group touches once (0.027 / 0.089 / 0.167
 // ms a 2D launch), but a group's chunks touch its slots about six times
-// over, mostly past the 50 MB L2.  The design before this one (kept below as
-// strata_chunks_*_levels_grid) ran one chunk on one 1024-thread block, a
-// persistent cooperative grid of one block an SM, and a grid barrier after
-// each level: a level's time was its slowest chunk, a second wave when it
-// held more than 132 chunks, and the barrier (12% of a smoke 2D launch,
-// 30% of a 1D one; PERF.md).
+// over, mostly past the 50 MB L2.  The design before this one ran one chunk
+// on one 1024-thread block, a persistent cooperative grid of one block an
+// SM, and a grid barrier after each level: a level's time was its slowest
+// chunk, a second wave when it held more than 132 chunks, and the barrier
+// (12% of a smoke 2D launch, 30% of a 1D one).  It lost to the clusters
+// below on the card and was retired (PERF.md section 6).
 //
 // What this design does about it:
 // - No grid barrier: clusters take chunks by an atomic ticket in perm
@@ -78,10 +78,8 @@
 // raises the group's word by one atomicMax; the drift is the untracked
 // instance's, bit for bit.  A run without delta never launches it.
 //
-// strata_chunks_2d_levels_grid / _1d_levels_grid are the design these kernels
-// replaced, off the main path, kept to be held against and timed beside the new
-// ones.  Every entry launches on the given stream, allocates nothing and
-// returns the CUDA error of the launch.
+// Every entry launches on the given stream, allocates nothing and returns
+// the CUDA error of the launch.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -319,110 +317,6 @@ int launch_levels(bool one_d, void* drift, const void* base, const void* planes,
                          pred_off, pred, flow, epoch, dmax, stream);
 }
 
-// ---------------------------------------------------------------------------
-// The grid-leveled kernels: a 1024-thread block a chunk, a persistent
-// cooperative grid of one block an SM, a grid barrier a level.
-// ---------------------------------------------------------------------------
-
-constexpr int LEVEL_THREADS = 1024;  // 4 pairs a thread, as the chain kernels
-
-// The grid barrier: the cooperative-groups scheme written out (one counter;
-// block 0 adds 2^31 - (blocks - 1), the others 1, so its top bit flips when
-// the last block arrives; a fence before and after), which needs no
-// relocatable device code; the counter is a scratch word the wrapper keeps.
-__device__ __forceinline__ void grid_barrier(unsigned int* counter) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned int add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
-    __threadfence();  // this block's writes before the arrival
-    const unsigned int old = atomicAdd(counter, add);
-    volatile unsigned int* vc = counter;
-    while (((old ^ *vc) & 0x80000000u) == 0u) {
-    }
-    __threadfence();  // the other blocks' writes before this block reads on
-  }
-  __syncthreads();
-}
-
-// Within level l, block b takes chunks perm[off[l] + b], perm[off[l] + b +
-// gridDim.x], ...; a grid barrier separates levels.
-#define GRID_PARAMS                                                                         \
-  float *drift, const float *__restrict__ base, const int *__restrict__ planes, long long L, \
-      const int *__restrict__ od, const float *__restrict__ eta, int cpi,                    \
-      const int *__restrict__ perm, const int *__restrict__ lvl_off, int nlev,               \
-      unsigned int *counter
-#define GRID_ARGS drift, base, planes, L, od, eta, cpi, perm, lvl_off, nlev, counter
-
-template <bool ONE_D>
-__device__ __forceinline__ void grid_body(GRID_PARAMS) {
-  for (int lv = 0; lv < nlev; ++lv) {
-    const int k1 = lvl_off[lv + 1];
-    for (int k = lvl_off[lv] + blockIdx.x; k < k1; k += gridDim.x) {
-      const int gl = perm[k];
-      const long long o = (long long)od[2 * gl] * LANE;
-      const long long D = od[2 * gl + 1];
-      // chunks of one level share no slot: no barrier between them
-      if constexpr (ONE_D)
-        strata::chunk_1d<LEVEL_THREADS>(drift, base, planes, L, o, D, eta[gl / cpi]);
-      else
-        strata::chunk_2d<LEVEL_THREADS>(drift, base, planes, L, o, D, eta[gl / cpi], gl);
-    }
-    if (lv + 1 < nlev) grid_barrier(counter);
-  }
-}
-
-__global__ void __launch_bounds__(LEVEL_THREADS, 1)
-strata_chunks_2d_levels_grid_kernel(GRID_PARAMS) { grid_body<false>(GRID_ARGS); }
-
-__global__ void __launch_bounds__(LEVEL_THREADS, 1)
-strata_chunks_1d_levels_grid_kernel(GRID_PARAMS) { grid_body<true>(GRID_ARGS); }
-
-template <bool ONE_D>
-const void* grid_kernel() {
-  return ONE_D ? (const void*)strata_chunks_1d_levels_grid_kernel
-               : (const void*)strata_chunks_2d_levels_grid_kernel;
-}
-
-// Blocks of the persistent grid of a kernel of LEVEL_THREADS threads on the
-// current device, cached per (slot, device).
-int grid_blocks(const void* fn, int slot, int* out) {
-  static int cached[CACHE_SLOTS][MAX_DEVICES] = {{0}};
-  if (slot < 0 || slot >= CACHE_SLOTS) return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < MAX_DEVICES && cached[slot][dev] > 0) {
-    *out = cached[slot][dev];
-    return 0;
-  }
-  int sms = 0, per_sm = 0, coop = 0;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (!coop) return (int)cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, LEVEL_THREADS, 0);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  *out = sms * per_sm;
-  if (dev < MAX_DEVICES) cached[slot][dev] = *out;
-  return 0;
-}
-
-int launch_grid(const void* fn, int slot, void* drift, const void* base, const void* planes,
-                long long L, const void* od, const void* eta, int cpi, const void* perm,
-                const void* lvl_off, int nlev, void* counter, void* stream) {
-  int blocks = 0;
-  const int err = grid_blocks(fn, slot, &blocks);
-  if (err != 0) return err;
-  void* args[] = {&drift, &base, &planes, &L,       &od,   &eta,
-                  &cpi,   &perm, &lvl_off, &nlev, &counter};
-  const cudaError_t lerr = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(LEVEL_THREADS),
-                                                       args, 0, (cudaStream_t)stream);
-  if (lerr != cudaSuccess) return (int)lerr;
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -462,32 +356,6 @@ int strata_chunks_1d_levels(void* drift, const void* base, const void* planes, l
                             void* stream) {
   return launch_levels(true, drift, base, planes, L, od, eta, cpi, perm, lvl_off, nlev,
                        pred_off, pred, flow, epoch, dmax, stream);
-}
-
-// Blocks of the persistent grid of the grid-leveled 2D (one_d 0) or 1D kernel on
-// the current device (0 on error).
-int strata_chunks_levels_blocks(int one_d) {
-  int blocks = 0;
-  const void* fn = one_d ? grid_kernel<true>() : grid_kernel<false>();
-  return grid_blocks(fn, one_d ? 1 : 0, &blocks) == 0 ? blocks : 0;
-}
-
-// The grid-leveled kernels: perm, lvl_off as above, every level in turn; counter:
-// one scratch word, zero before the first launch.
-int strata_chunks_2d_levels_grid(void* drift, const void* base, const void* planes,
-                                 long long L, const void* od, const void* eta, int cpi,
-                                 const void* perm, const void* lvl_off, int nlev,
-                                 void* counter, void* stream) {
-  return launch_grid(grid_kernel<false>(), 0, drift, base, planes, L, od, eta, cpi, perm,
-                     lvl_off, nlev, counter, stream);
-}
-
-int strata_chunks_1d_levels_grid(void* drift, const void* base, const void* planes,
-                                 long long L, const void* od, const void* eta, int cpi,
-                                 const void* perm, const void* lvl_off, int nlev,
-                                 void* counter, void* stream) {
-  return launch_grid(grid_kernel<true>(), 1, drift, base, planes, L, od, eta, cpi, perm,
-                     lvl_off, nlev, counter, stream);
 }
 
 }  // extern "C"

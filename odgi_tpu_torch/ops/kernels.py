@@ -9,36 +9,33 @@ launches the kernel on the current stream or raises.  A wrapper adds one to
 ``LAUNCHES[name]`` for every kernel launch, and only there.
 
 Kernel (source)                     TPU kernel it replaces (odgi_tpu/ops/)
-strata_chunks_2d (strata_sgd.cu)    pallas_sgd.py _make_kernel_2d, chunk phase
-strata_chunks_1d                    pallas_sgd.py _make_kernel_1d, chunk phase
-strata_merge_sum                    pallas_sgd.py _merge_tiles_2d/_1d, sums
-strata_merge_bcast                  pallas_sgd.py _merge_tiles_2d/_1d, broadcast;
-                                      pallas_sgd_xxl.py broadcast + zeroing passes
-strata_chunks_2d_stream             pallas_sgd_xl.py _run_chunks_2d (XL, XXL 2D)
-  (strata_stream.cu)
-strata_chunks_1d_stream             pallas_sgd_xl.py _run_chunks_1d (XL, XXL 1D)
-strata_merge_sum_blocked            pallas_sgd_xxl.py scatter pass
-  (strata_blocked.cu)
-strata_chunks_2d_levels             pallas_sgd.py _chunk_2d and the 2D chunk
-  (strata_levels.cu)                  phases of _make_kernel_xl / _xxl
-strata_chunks_1d_levels             pallas_sgd.py _chunk_1d and the 1D chunk
-  (strata_levels.cu)                  phases of _make_kernel_xl_1d / _xxl_1d
+strata_chunks_2d_levels             the 2D chunk phase of every 2D kernel:
+  (strata_levels.cu)                  pallas_sgd.py _make_kernel_2d,
+                                      pallas_sgd_xl.py _make_kernel_xl,
+                                      pallas_sgd_xxl.py _make_kernel_xxl
+strata_chunks_1d_levels             the 1D chunk phase of _make_kernel_1d,
+  (strata_levels.cu)                  _make_kernel_xl_1d, _make_kernel_xxl_1d
 strata_chunks_2d_levels_track       pallas_sgd.py _make_kernel_2d with track
   (strata_levels.cu, TRACK)           (the dmax output, delta early stop)
 strata_chunks_1d_levels_track       pallas_sgd.py _make_kernel_1d with track
-strata_chunks_2d_levels_grid        as strata_chunks_2d_levels: the grid-
-  (strata_levels.cu)                  barrier design, off the main path
-strata_chunks_1d_levels_grid        as strata_chunks_1d_levels, likewise
+strata_chunks_2d (strata_sgd.cu)    the reference of strata_chunks_2d_levels
+strata_chunks_1d                    the reference of strata_chunks_1d_levels
+strata_merge_sum                    pallas_sgd.py _merge_tiles_2d/_1d, sums
+strata_merge_bcast                  pallas_sgd.py _merge_tiles_2d/_1d, broadcast;
+                                      pallas_sgd_xxl.py broadcast + zeroing passes
+strata_merge_sum_blocked            pallas_sgd_xxl.py scatter pass
+  (strata_blocked.cu)
 The XL route's merge is strata_merge_sum / strata_merge_bcast, which have
 no node-width cap (the counterpart of XL's streamed full-width merge); the
 XXL route's is strata_merge_sum_blocked / strata_merge_bcast: one pass over
 the slots serves every route.
-The chunk phase of every route is strata_chunks_2d_levels /
-strata_chunks_1d_levels: a thread-block cluster a chunk, chunks handed out
-by a ticket in level order, each waiting only for its predecessors
-(``ops/strata_levels.py``).  The chain kernels strata_chunks_2d / _1d,
-their stream twins and the grid-barrier kernels strata_chunks_*_levels_grid
-compute the same drift and stay as their reference, off the main path.
+The chunk phase of every route (resident, XL, XXL) is
+strata_chunks_2d_levels / strata_chunks_1d_levels: a thread-block cluster
+a chunk, chunks handed out by a ticket in level order, each waiting only
+for its predecessors (``ops/strata_levels.py``).  The chain kernels
+strata_chunks_2d / _1d walk a group's chunks in order on one block and
+compute the same drift bit for bit: they are the leveled kernels'
+reference, off the main path.
 """
 
 from __future__ import annotations
@@ -65,26 +62,19 @@ NVCC_FLAGS = (
 
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _CHUNK_ARGS = [P, P, P, LL, P, P, I, I, I, P]
-_STREAM_ARGS = [P, P, P, LL, P, P, P, I, I, I, P]
 _LEVELS_ARGS = [P, P, P, LL, P, P, I, P, P, I, P, P, P, ctypes.c_uint, P, P]
-_GRID_ARGS = [P, P, P, LL, P, P, I, P, P, I, P, P]
 # name -> ctypes argument types of its C entry (all return int)
 SIGNATURES = {
     "strata_chunks_2d": _CHUNK_ARGS,
     "strata_chunks_1d": _CHUNK_ARGS,
     "strata_merge_sum": [P, LL, P, P, P, P, P, I, I, I, I, P],
     "strata_merge_bcast": [P, P, LL, P, P, I, I, P],
-    "strata_chunks_2d_stream": _STREAM_ARGS,
-    "strata_chunks_1d_stream": _STREAM_ARGS,
     "strata_merge_sum_blocked": [P, LL, P, P, P, P, P, I, I, I, I, I, P],
     "strata_chunks_2d_levels": _LEVELS_ARGS,
     "strata_chunks_1d_levels": _LEVELS_ARGS,
-    "strata_chunks_2d_levels_grid": _GRID_ARGS,
-    "strata_chunks_1d_levels_grid": _GRID_ARGS,
 }
 # The other C entries: name -> (argument types, result type).
-QUERIES = {"strata_chunks_levels_blocks": ([I], I),
-           "strata_chunks_levels_clusters": ([I], I),
+QUERIES = {"strata_chunks_levels_clusters": ([I], I),
            "strata_chunks_levels_cluster_blocks": ([I], I)}
 # The tracking instances of the leveled kernels (a group's Delta_max for
 # delta early stop): launched by the same wrappers when given `dmax`, and
@@ -199,7 +189,7 @@ def _check(tensors: dict, device) -> None:
         "od": torch.int32, "eta": torch.float32, "ep": torch.int32,
         "csr_off": torch.int32, "csr_slot": torch.int32,
         "recip": torch.float64, "coords": torch.float64, "upd": torch.float64,
-        "sync": torch.int32, "tile": torch.int32, "block": torch.int32,
+        "tile": torch.int32, "block": torch.int32,
         "blk_off": torch.int32, "perm": torch.int32, "lvl_off": torch.int32,
         "pred_off": torch.int32, "pred": torch.int32, "dmax": torch.float32,
     }
@@ -223,12 +213,8 @@ def _launched(name: str, err: int) -> None:
         raise RuntimeError(f"odgi_tpu_torch: {name} launch failed: CUDA error {err}")
 
 
-def _chunks(name: str, nplanes: int, drift, base, planes, od, eta, cpi, g0, cgs,
-            sync=None):
-    tensors = dict(drift=drift, base=base, planes=planes, od=od, eta=eta)
-    if sync is not None:
-        tensors["sync"] = sync
-    _check(tensors, drift.device)
+def _chunks(name: str, nplanes: int, drift, base, planes, od, eta, cpi, g0, cgs):
+    _check(dict(drift=drift, base=base, planes=planes, od=od, eta=eta), drift.device)
     L = drift.shape[1]
     _require(drift.shape == base.shape and drift.shape[0] == (4 if nplanes == 4 else 1),
              "drift/base shape")
@@ -237,13 +223,8 @@ def _chunks(name: str, nplanes: int, drift, base, planes, od, eta, cpi, g0, cgs,
              "od covers the group")
     _require(cgs > 0 and cpi > 0 and (g0 + cgs - 1) // cpi < eta.shape[0],
              "eta covers the group")
-    if sync is None:
-        err = _fn(name)(_ptr(drift), _ptr(base), _ptr(planes), L, _ptr(od), _ptr(eta),
-                        int(cpi), int(g0), int(cgs), _stream(drift.device))
-    else:
-        _require(sync.shape == (od.shape[0],), "sync has one flag a chunk")
-        err = _fn(name)(_ptr(drift), _ptr(base), _ptr(planes), L, _ptr(od), _ptr(sync),
-                        _ptr(eta), int(cpi), int(g0), int(cgs), _stream(drift.device))
+    err = _fn(name)(_ptr(drift), _ptr(base), _ptr(planes), L, _ptr(od), _ptr(eta),
+                    int(cpi), int(g0), int(cgs), _stream(drift.device))
     _launched(name, err)
 
 
@@ -305,19 +286,6 @@ def strata_merge_bcast(drift, base, mi, upd):
     _launched("strata_merge_bcast", err)
 
 
-def strata_chunks_2d_stream(drift, base, planes, od, sync, eta, cpi: int, g0: int, cgs: int):
-    """The chain of `strata_chunks_2d` as the XL / XXL TPU kernels run it,
-    in place on `drift`; `sync` (chunks,) i32 (``strata_xl.sync_flags``)
-    gates the next chunk's drift prefetch.  Same result."""
-    if drift.device.type == "cpu":
-        return strata_sgd.chunks_2d_plain(drift, base, planes, od, eta, cpi, g0, cgs)
-    _chunks("strata_chunks_2d_stream", 4, drift, base, planes, od, eta, cpi, g0, cgs, sync)
-
-
-# One scratch word a device: the grid barrier's counter of the grid-leveled
-# kernels.  It starts at 0 and every completed launch leaves its low 31 bits
-# at 0, so launches on one stream share it.
-_BARRIER: dict = {}
 # The leveled kernels' scratch a device: [ticket, done word a chunk], zero
 # at first, grown to the largest run seen; and the launch count, each
 # launch's epoch (its done words' value; never 0).  The ticket ends every
@@ -325,25 +293,6 @@ _BARRIER: dict = {}
 # launches on one stream share them.
 _FLOW: dict = {}
 _EPOCH: dict = {}
-
-
-def _check_levels(nplanes: int, tensors: dict, cpi: int, dmax) -> None:
-    drift, base, planes, od = (tensors[k] for k in ("drift", "base", "planes", "od"))
-    if dmax is not None:
-        tensors["dmax"] = dmax
-        _require(dmax.numel() == 1, "dmax is the group's one word")
-    _check(tensors, drift.device)
-    L = drift.shape[1]
-    _require(drift.shape == base.shape and drift.shape[0] == (4 if nplanes == 4 else 1),
-             "drift/base shape")
-    _require(planes.shape == (nplanes, L), "planes shape")
-    _require(od.dim() == 2 and od.shape[1] == 2, "od shape")
-    _require(tensors["perm"].shape == (od.shape[0],), "perm has one entry a chunk")
-    lvl_off = tensors["lvl_off"]
-    _require(lvl_off.dim() == 1 and 2 <= lvl_off.shape[0] <= od.shape[0] + 1,
-             "lvl_off holds 1 to chunks levels")
-    _require(cpi > 0 and (od.shape[0] - 1) // cpi < tensors["eta"].shape[0],
-             "eta covers the chunks")
 
 
 def _flow(device, chunks: int) -> tuple:
@@ -361,12 +310,24 @@ def _levels(name: str, nplanes: int, drift, base, planes, od, eta, cpi, perm, lv
             pred_off, pred, dmax=None) -> None:
     tensors = dict(drift=drift, base=base, planes=planes, od=od, eta=eta, perm=perm,
                    lvl_off=lvl_off, pred_off=pred_off, pred=pred)
-    _check_levels(nplanes, tensors, cpi, dmax)
+    if dmax is not None:
+        tensors["dmax"] = dmax
+        _require(dmax.numel() == 1, "dmax is the group's one word")
+    _check(tensors, drift.device)
+    L = drift.shape[1]
+    _require(drift.shape == base.shape and drift.shape[0] == (4 if nplanes == 4 else 1),
+             "drift/base shape")
+    _require(planes.shape == (nplanes, L), "planes shape")
+    _require(od.dim() == 2 and od.shape[1] == 2, "od shape")
+    _require(perm.shape == (od.shape[0],), "perm has one entry a chunk")
+    _require(lvl_off.dim() == 1 and 2 <= lvl_off.shape[0] <= od.shape[0] + 1,
+             "lvl_off holds 1 to chunks levels")
+    _require(cpi > 0 and (od.shape[0] - 1) // cpi < eta.shape[0], "eta covers the chunks")
     _require(pred_off.shape == (od.shape[0] + 1,) and pred.dim() == 1,
              "pred_off has chunks + 1 offsets into pred")
     flow, epoch = _flow(drift.device, od.shape[0])
     err = _fn(name)(
-        _ptr(drift), _ptr(base), _ptr(planes), drift.shape[1], _ptr(od), _ptr(eta), int(cpi),
+        _ptr(drift), _ptr(base), _ptr(planes), L, _ptr(od), _ptr(eta), int(cpi),
         _ptr(perm), _ptr(lvl_off), int(lvl_off.shape[0] - 1), _ptr(pred_off), _ptr(pred),
         _ptr(flow), epoch, ctypes.c_void_p(None if dmax is None else dmax.data_ptr()),
         _stream(drift.device))
@@ -404,62 +365,11 @@ def strata_chunks_1d_levels(drift, base, planes, od, eta, cpi: int, perm, lvl_of
             pred_off, pred, dmax)
 
 
-def _levels_grid(name: str, nplanes: int, drift, base, planes, od, eta, cpi, perm,
-                 lvl_off) -> None:
-    tensors = dict(drift=drift, base=base, planes=planes, od=od, eta=eta, perm=perm,
-                   lvl_off=lvl_off)
-    _check_levels(nplanes, tensors, cpi, None)
-    counter = _BARRIER.get(drift.device)
-    if counter is None:
-        counter = _BARRIER[drift.device] = torch.zeros(1, dtype=torch.int32,
-                                                       device=drift.device)
-    err = _fn(name)(
-        _ptr(drift), _ptr(base), _ptr(planes), drift.shape[1], _ptr(od), _ptr(eta), int(cpi),
-        _ptr(perm), _ptr(lvl_off), int(lvl_off.shape[0] - 1), _ptr(counter),
-        _stream(drift.device))
-    _launched(name, err)
-
-
-def strata_chunks_2d_levels_grid(drift, base, planes, od, eta, cpi: int, perm, lvl_off):
-    """`strata_chunks_2d_levels` by its earlier design, off the main path: a
-    persistent cooperative grid of one 1024-thread block an SM, level l's
-    chunks perm[lvl_off[l]:lvl_off[l+1]] at once, a grid barrier between
-    levels.  Same result."""
-    if drift.device.type == "cpu":
-        return strata_sgd.chunks_2d_levels_plain(drift, base, planes, od, eta, cpi, perm,
-                                                 lvl_off)
-    _levels_grid("strata_chunks_2d_levels_grid", 4, drift, base, planes, od, eta, cpi, perm,
-                 lvl_off)
-
-
-def strata_chunks_1d_levels_grid(drift, base, planes, od, eta, cpi: int, perm, lvl_off):
-    """`strata_chunks_2d_levels_grid` for the 1D scheme."""
-    if drift.device.type == "cpu":
-        return strata_sgd.chunks_1d_levels_plain(drift, base, planes, od, eta, cpi, perm,
-                                                 lvl_off)
-    _levels_grid("strata_chunks_1d_levels_grid", 3, drift, base, planes, od, eta, cpi, perm,
-                 lvl_off)
-
-
-def levels_grid_blocks(one_d: bool = False) -> int:
-    """Blocks of the persistent grid of the 2D (or 1D) grid-leveled kernel
-    on the current card."""
-    return int(_fn("strata_chunks_levels_blocks")(int(bool(one_d))))
-
-
 def levels_clusters(one_d: bool = False) -> tuple:
     """(clusters, blocks a cluster) of the 2D (or 1D) leveled kernel's grid
     on the current card: the clusters that fit at once."""
     return (int(_fn("strata_chunks_levels_clusters")(int(bool(one_d)))),
             int(_fn("strata_chunks_levels_cluster_blocks")(int(bool(one_d)))))
-
-
-def strata_chunks_1d_stream(drift, base, planes, od, sync, eta, cpi: int, g0: int, cgs: int):
-    """The chain of `strata_chunks_1d` as the XL / XXL TPU kernels run it,
-    gated as `strata_chunks_2d_stream`.  Same result."""
-    if drift.device.type == "cpu":
-        return strata_sgd.chunks_1d_plain(drift, base, planes, od, eta, cpi, g0, cgs)
-    _chunks("strata_chunks_1d_stream", 3, drift, base, planes, od, eta, cpi, g0, cgs, sync)
 
 
 def _check_schedule(drift, mi, bsch, E: int) -> None:

@@ -19,9 +19,8 @@ footprints are disjoint commute exactly.  A chunk's footprint is the set of
 Any order of a group's chunks in which every chunk comes after every
 earlier chunk it conflicts with gives the chain's result bit for bit.  The
 order by (level, index), ``perm``, is one: the leveled kernels of
-``csrc/strata_levels.cu`` hand its chunks out in that order, and each
-chunk waits only for its predecessors (``strata_chunks_*_levels``) or for
-the whole level before it (``strata_chunks_*_levels_grid``).
+``csrc/strata_levels.cu`` (``strata_chunks_*_levels``) hand its chunks
+out in that order, and each chunk waits only for its predecessors.
 
 ``chunk_schedule`` builds perm, the level offsets and the predecessor
 lists: in C++ (``native/src/strata_schedule.cpp``, built at first use), or,

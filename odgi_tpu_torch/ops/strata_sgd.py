@@ -29,11 +29,8 @@ On every route the chunk phase runs on the leveled kernels
 (``strata_chunks_2d_levels`` / ``strata_chunks_1d_levels``) in the
 schedule of ``ops/strata_levels.py``: the group's chunks in conflict-level
 order, each after its predecessors, which gives the drift of the chain
-kernels (``strata_chunks_2d/1d`` and the stream kernels, which prefetch the
-next chunk as gated by the sync flags of ``ops/strata_xl.py``) bit for
-bit; the chain kernels and the grid-barrier kernels
-(``strata_chunks_*_levels_grid``) stay as its reference, off the main
-path.
+kernels ``strata_chunks_2d/1d`` bit for bit; the chain kernels stay as its
+reference, off the main path.
 
 Each phase has a plain PyTorch version here and a CUDA kernel behind the
 wrappers of ``ops/kernels.py``; the runs call the wrappers, which take

@@ -7,18 +7,19 @@ Tolerances: the chunk kernels are compiled with -fmad=false and IEEE sqrt
 and division, so they round as the plain versions do; max |drift delta|
 over the scale <= 1e-6 (bit-equality expected).  The merge sums are f64 in
 ascending slot order, while the plain version's CUDA index_add_ adds in no
-fixed order: <= 1e-12 of the scale.  The stream and blocked kernels of the
-XL and XXL routes equal the resident kernels exactly, and the broadcast,
-which every route runs, equals its plain version exactly.  The leveled 2D and
-1D chunk kernels equal the chain kernels exactly, strata_merge_sum equals
-the ascending-order loop merge_sum_ordered_plain exactly at every block
-size, and the blocked sum equals it too, at every node-block size.  The
-sharded run at two simulated devices on the card lies within 1e-9 of the
-same run on the CPU, and a one-rank NCCL group equals the one-device
-simulation exactly.  The leveled kernels (a thread-block cluster a chunk,
-each chunk after its predecessors) equal the grid-barrier kernels
-strata_chunks_*_levels_grid exactly too.  The leveled kernels' tracking
-instances (delta early stop) give the untracked drift exactly and the plain versions' Delta_max
+fixed order: <= 1e-12 of the scale.  The XL and XXL routes give the
+resident route's coordinates exactly, the blocked sum of the XXL route
+equals the CSR sum exactly, and the broadcast, which every route runs,
+equals its plain version exactly.  The leveled 2D and 1D chunk kernels (a
+thread-block cluster a chunk, each chunk after its predecessors: the main
+path's chunk phase on every route) equal the chain kernels, their
+reference, exactly, group by group and over whole runs; strata_merge_sum
+equals the ascending-order loop merge_sum_ordered_plain exactly at every
+block size, and the blocked sum equals it too, at every node-block size.
+The sharded run at two simulated devices on the card lies within 1e-9 of
+the same run on the CPU, and a one-rank NCCL group equals the one-device
+simulation exactly.  The leveled kernels' tracking instances (delta early
+stop) give the untracked drift exactly and the plain versions' Delta_max
 exactly, and tracked runs on the card stop where the CPU's stop; a batched
 step on the card lies within 1e-6 of the scale of the same words' step on
 the CPU (index_add_ adds by atomics there), and so do the multi-device
@@ -39,7 +40,7 @@ import torch
 
 from odgi_tpu_torch.algorithms.layout import init_layout
 from odgi_tpu_torch.core.graph import GraphBuilder
-from odgi_tpu_torch.ops import kernels, sgd, strata_levels, strata_sgd, strata_xl, strata_xxl
+from odgi_tpu_torch.ops import kernels, sgd, strata_levels, strata_sgd, strata_xxl
 
 pytestmark = pytest.mark.cuda
 
@@ -114,17 +115,6 @@ def _state(graph, one_d, device, route="resident"):
         graph, sgd.derive_config_2d(graph, **kw), init_layout(graph), False, device, route)
 
 
-def _sync(st):
-    """The sync flags of the stream chain kernels for the state's plan."""
-    return torch.as_tensor(strata_xl.sync_flags(st.plan), device=st.od.device)
-
-
-def _chunk_kernels(one_d):
-    if one_d:
-        return kernels.strata_chunks_1d_stream, kernels.strata_chunks_1d, strata_sgd.chunks_1d_plain
-    return kernels.strata_chunks_2d_stream, kernels.strata_chunks_2d, strata_sgd.chunks_2d_plain
-
-
 @pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
 def test_kernels_match_plain(cuda, graph, one_d):
     st = _state(graph, one_d, cuda)
@@ -187,54 +177,6 @@ def test_wrapper_rejects_bad_arguments(cuda, graph):
 
 
 @pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
-def test_stream_kernels_equal_resident_all_synced(cuda, graph, one_d):
-    """Every chunk's drift read after the previous chunk's adds."""
-    st = _state(graph, one_d, cuda, "xl")
-    p = st.plan
-    stream, resident, _ = _chunk_kernels(one_d)
-    sync = _sync(st)
-    ones = torch.ones_like(sync)
-    for gid in range(p["groups"]):
-        tail = (st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
-        d_s, d_r, d_f = st.drift.clone(), st.drift.clone(), st.drift.clone()
-        stream(d_s, st.base, st.planes, st.od, ones, *tail)
-        stream(d_f, st.base, st.planes, st.od, sync, *tail)
-        resident(d_r, st.base, st.planes, st.od, *tail)
-        torch.cuda.synchronize()
-        assert torch.equal(d_s, d_r) and torch.equal(d_f, d_r)
-        assert float(d_r.abs().max()) > 0
-        st.drift = d_r
-        kernels.strata_merge_sum(st.drift, st.mi, st.coords, st.upd)
-        kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)
-
-
-@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
-def test_stream_kernels_equal_resident_all_prefetched(cuda, long_graph, one_d):
-    """Chunks alternating between two far regions: every sync flag is 0, so
-    every chunk's drift is read during the previous chunk."""
-    st = _state(long_graph, one_d, cuda, "xl")
-    n = min(64, st.plan["cpi"])
-    rng = np.random.default_rng(9)
-    o_blk = np.where(np.arange(n) % 2 == 0, 0, 140).astype(np.int32)
-    d_arr = rng.integers(1, 2000, n).astype(np.int32)
-    flags = strata_xl.sync_flags(dict(groups=1, cgs=n, o_blk=o_blk, d_arr=d_arr))
-    assert not flags.any()
-    od = torch.as_tensor(np.stack([o_blk, d_arr], 1), device=cuda)
-    sync = torch.as_tensor(flags, device=cuda)
-    stream, resident, plain = _chunk_kernels(one_d)
-    tail = (st.eta, st.plan["cpi"], 0, n)
-    d_s, d_r, d_p = st.drift.clone(), st.drift.clone(), st.drift.clone()
-    stream(d_s, st.base, st.planes, od, sync, *tail)
-    resident(d_r, st.base, st.planes, od, *tail)
-    plain(d_p, st.base, st.planes, od, *tail)
-    torch.cuda.synchronize()
-    assert torch.equal(d_s, d_r)
-    scale = float(st.base.abs().max()) + 1
-    assert float((d_s - d_p).abs().max()) / scale <= CHUNK_TOL
-    assert float(d_r.abs().max()) > 0
-
-
-@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
 @pytest.mark.parametrize("bs", [256, 1024, strata_xxl.XXL_BS])
 def test_blocked_merges_equal_csr_merges(cuda, wide_graph, one_d, bs, monkeypatch):
     monkeypatch.setattr(strata_xxl, "XXL_BS", bs)
@@ -285,22 +227,12 @@ def test_routes_equal_on_card(cuda, wide_graph, one_d, monkeypatch):
     for n in ("strata_chunks_1d_levels" if one_d else "strata_chunks_2d_levels",
               "strata_merge_sum_blocked", "strata_merge_bcast"):
         assert kernels.LAUNCHES[n] > before[n]
-    for n in ("strata_chunks_1d", "strata_chunks_1d_stream", "strata_chunks_2d",
-              "strata_chunks_2d_stream"):
+    for n in ("strata_chunks_1d", "strata_chunks_2d"):
         assert kernels.LAUNCHES[n] == before[n]
 
 
 def test_new_wrappers_reject_bad_arguments(cuda, wide_graph):
     st = _state(wide_graph, False, cuda, "xxl")
-    p = st.plan
-    tail = (st.eta, p["cpi"], 0, p["cgs"])
-    chunks = kernels.strata_chunks_2d_stream
-    sync = _sync(st)
-    for bad_sync in (sync.cpu(), sync.long(), sync[:-1]):
-        with pytest.raises(ValueError):
-            chunks(st.drift, st.base, st.planes, st.od, bad_sync, *tail)
-    with pytest.raises(ValueError):
-        kernels.strata_chunks_1d_stream(st.drift, st.base, st.planes, st.od, sync, *tail)
     bs = st.bsch
     for bad in (dataclasses.replace(bs, tile=bs.tile.cpu()),
                 dataclasses.replace(bs, tile=bs.tile.long()),
@@ -327,27 +259,20 @@ def test_leveled_chunks_equal_chain_groups(cuda, long_graph, route):
     p = st.plan
     depth = strata_levels.depths(strata_levels.chunk_levels(p)[1])
     assert depth.max() < p["cgs"]  # levels of more than one chunk
-    sync = _sync(st)
     before = dict(kernels.LAUNCHES)
     for gid in range(p["groups"]):
         tail = (st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
-        d_l, d_c, d_s, d_g = (st.drift.clone() for _ in range(4))
+        d_l, d_c = st.drift.clone(), st.drift.clone()
         kernels.strata_chunks_2d_levels(d_l, st.base, st.planes, st.od, st.eta, p["cpi"],
                                         st.perm, st.lvl_rows[gid], st.pred_off, st.pred)
-        kernels.strata_chunks_2d_levels_grid(d_g, st.base, st.planes, st.od, st.eta, p["cpi"],
-                                             st.perm, st.lvl_rows[gid])
         kernels.strata_chunks_2d(d_c, st.base, st.planes, st.od, *tail)
-        if route != "resident":
-            kernels.strata_chunks_2d_stream(d_s, st.base, st.planes, st.od, sync, *tail)
-            torch.cuda.synchronize()
-            assert torch.equal(d_s, d_c)
         torch.cuda.synchronize()
-        assert torch.equal(d_l, d_c) and torch.equal(d_g, d_c)
+        assert torch.equal(d_l, d_c)
         assert float(d_c.abs().max()) > 0
         st.drift = d_l
         kernels.strata_merge_sum(st.drift, st.mi, st.coords, st.upd)
         kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)
-    for name in ("strata_chunks_2d_levels", "strata_chunks_2d_levels_grid"):
+    for name in ("strata_chunks_2d_levels", "strata_chunks_2d"):
         assert kernels.LAUNCHES[name] - before[name] == p["groups"]
 
 
@@ -396,13 +321,9 @@ def test_levels_wrapper_rejects_bad_arguments(cuda, long_graph):
     for bad_perm in (st.perm.cpu(), st.perm.long(), st.perm[:-1], st.perm[::2]):
         with pytest.raises(ValueError):
             kernels.strata_chunks_2d_levels(*args, bad_perm, row, *preds)
-        with pytest.raises(ValueError):
-            kernels.strata_chunks_2d_levels_grid(*args, bad_perm, row)
     for bad_off in (row.cpu(), row.long(), row[:1], row[None, :].expand(2, -1)):
         with pytest.raises(ValueError):
             kernels.strata_chunks_2d_levels(*args, st.perm, bad_off, *preds)
-        with pytest.raises(ValueError):
-            kernels.strata_chunks_2d_levels_grid(*args, st.perm, bad_off)
     for bad_preds in ((st.pred_off[:-1], st.pred), (st.pred_off.long(), st.pred),
                       (st.pred_off, st.pred.cpu()), (st.pred_off, st.pred[None, :]),
                       (st.pred_off[::2], st.pred)):
@@ -433,19 +354,15 @@ def test_leveled_1d_chunks_equal_chain_groups(cuda, long_graph, route):
     p = st.plan
     depth = strata_levels.depths(strata_levels.chunk_levels(p)[1])
     assert depth.max() < p["cgs"]  # levels of more than one chunk
-    sync = _sync(st)
     before = dict(kernels.LAUNCHES)
     for gid in range(p["groups"]):
         tail = (st.eta, p["cpi"], gid * p["cgs"], p["cgs"])
-        d_l, d_c, d_s, d_g = (st.drift.clone() for _ in range(4))
+        d_l, d_c = st.drift.clone(), st.drift.clone()
         kernels.strata_chunks_1d_levels(d_l, st.base, st.planes, st.od, st.eta, p["cpi"],
                                         st.perm, st.lvl_rows[gid], st.pred_off, st.pred)
-        kernels.strata_chunks_1d_levels_grid(d_g, st.base, st.planes, st.od, st.eta, p["cpi"],
-                                             st.perm, st.lvl_rows[gid])
         kernels.strata_chunks_1d(d_c, st.base, st.planes, st.od, *tail)
-        kernels.strata_chunks_1d_stream(d_s, st.base, st.planes, st.od, sync, *tail)
         torch.cuda.synchronize()
-        assert torch.equal(d_l, d_c) and torch.equal(d_s, d_c) and torch.equal(d_g, d_c)
+        assert torch.equal(d_l, d_c)
         assert float(d_c.abs().max()) > 0
         st.drift = d_l
         if route == "xxl":
@@ -453,10 +370,9 @@ def test_leveled_1d_chunks_equal_chain_groups(cuda, long_graph, route):
         else:
             kernels.strata_merge_sum(st.drift, st.mi, st.coords, st.upd)
         kernels.strata_merge_bcast(st.drift, st.base, st.mi, st.upd)
-    for name in ("strata_chunks_1d_levels", "strata_chunks_1d_levels_grid"):
+    for name in ("strata_chunks_1d_levels", "strata_chunks_1d"):
         assert kernels.LAUNCHES[name] - before[name] == p["groups"]
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert kernels.levels_grid_blocks(one_d=True) >= sms
     for one_d in (True, False):  # the leveled kernels' clusters fill the card
         clusters, blocks = kernels.levels_clusters(one_d)
         assert clusters >= 1 and clusters * blocks >= sms
@@ -508,8 +424,6 @@ def test_levels_1d_wrapper_rejects_bad_arguments(cuda, long_graph):
     for bad_perm in (st.perm.cpu(), st.perm.long(), st.perm[:-1]):
         with pytest.raises(ValueError):
             kernels.strata_chunks_1d_levels(*args, bad_perm, row, *preds)
-        with pytest.raises(ValueError):
-            kernels.strata_chunks_1d_levels_grid(*args, bad_perm, row)
     for bad_off in (row.cpu(), row[:1]):
         with pytest.raises(ValueError):
             kernels.strata_chunks_1d_levels(*args, st.perm, bad_off, *preds)
@@ -520,9 +434,6 @@ def test_levels_1d_wrapper_rejects_bad_arguments(cuda, long_graph):
         kernels.strata_chunks_1d_levels(st2.drift, st2.base, st2.planes, st2.od, st2.eta,
                                         st2.plan["cpi"], st2.perm, st2.lvl_rows[0],
                                         st2.pred_off, st2.pred)
-    with pytest.raises(ValueError):
-        kernels.strata_chunks_1d_levels_grid(st2.drift, st2.base, st2.planes, st2.od, st2.eta,
-                                             st2.plan["cpi"], st2.perm, st2.lvl_rows[0])
     with pytest.raises(ValueError):
         kernels.strata_chunks_2d_levels(*args, st.perm, row, *preds)
 

@@ -1,12 +1,19 @@
 """odgi_tpu_torch stands alone: it imports neither JAX nor odgi_tpu, nor
-PIL (its pictures are written by io/png.py and algorithms/font.py)."""
+PIL (its pictures are written by io/png.py and algorithms/font.py).  It has
+a counterpart of every module and public name of odgi_tpu, and
+ops/kernels.py binds every C entry of its CUDA sources, each with the
+parameter types the source declares."""
 
 import ast
+import ctypes
 import pathlib
+import re
 import subprocess
 import sys
 
 import pytest
+
+from odgi_tpu_torch.ops import kernels
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "odgi_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -113,7 +120,7 @@ COUNTERPARTS = {
     "ops/pallas_sgd.py": ("ops/strata_sgd.py:path_sgd_1d_strata", "ops/strata_sgd.py:path_sgd_2d_strata",
                           "ops/strata_plan.py", "ops/strata_levels.py", "ops/kernels.py",
                           "csrc/strata_sgd.cu", "csrc/strata_levels.cu"),
-    "ops/pallas_sgd_xl.py": ("ops/strata_xl.py:pack_od_xl", "csrc/strata_stream.cu"),
+    "ops/pallas_sgd_xl.py": ("csrc/strata_levels.cu", "ops/strata_route.py"),
     "ops/pallas_sgd_xxl.py": ("ops/strata_xxl.py:build_schedule", "csrc/strata_blocked.cu"),
     "parallel/sharded_pallas.py": ("parallel/sharded_strata.py:path_sgd_2d_strata_sharded",),
     "ops/sgd.py:SgdData": ("ops/batched_sgd.py:SgdData",),
@@ -221,3 +228,34 @@ def test_completeness_table_is_current(key):
     for target in COUNTERPARTS.get(key, ()):
         assert target_exists(target), f"{key} -> {target}"
     assert COUNTERPARTS.get(key) or NO_COUNTERPART.get(key)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA sources' C entries against ops/kernels.py's binding tables
+# ---------------------------------------------------------------------------
+
+C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong,
+           "unsigned": ctypes.c_uint}
+BOUND = {**kernels.SIGNATURES, **{n: args for n, (args, _) in kernels.QUERIES.items()}}
+
+
+def c_entries() -> dict:
+    """name -> ctypes types of the parameters of every function defined in
+    an extern "C" block of odgi_tpu_torch/csrc/*.cu."""
+    out = {}
+    for src in kernels.sources():
+        for block in re.findall(r'extern "C" \{(.*?)\}  // extern "C"', src.read_text(), re.S):
+            for name, params in re.findall(r"^int (\w+)\(([^)]*)\)\s*\{", block, re.M):
+                assert name not in out, f"{name} is defined twice"
+                types = [" ".join(p.replace("const ", "").split()[:-1]) for p in params.split(",")]
+                out[name] = [C_TYPES[t] for t in types]
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(BOUND))
+def test_bound_entry_has_the_sources_parameters(name):
+    assert c_entries().get(name) == BOUND[name]
+
+
+def test_every_c_entry_is_bound():
+    assert sorted(c_entries()) == sorted(BOUND)

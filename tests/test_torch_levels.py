@@ -250,7 +250,7 @@ def test_leveled_default_schedule_matches_twin(graph_cache):
 
 def test_one_d_state_has_levels(graph_cache):
     """A 1D state carries its conflict levels, as a 2D state does, and no
-    sync flags: no kernel of the main path reads them."""
+    sync flags: no kernel reads them."""
     gt = _port(_graph(graph_cache, "walk"))
     cfg = sgd.derive_config_1d(gt, iter_max=1, min_term_updates=3 * 1024)
     st = strata_sgd.StrataState.build(gt, cfg, gt.node_offset.astype(np.float32), True,

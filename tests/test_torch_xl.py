@@ -4,7 +4,6 @@ predicates and HBM-streaming kernels (ops/pallas_sgd_xl.py, interpret mode).
 - The route function equals the JAX predicates on stand-in graphs of every
   class, with JAX told it runs on a TPU (its predicates refuse any other
   backend); exact.
-- The sync flags equal `_pack_od_xl`'s byte for byte.
 - The "xl" route equals the port's "resident" route exactly (same chunks,
   same merge).  Against the JAX package (max |delta| over the coordinate
   scale): within 1e-6 of the exact-arithmetic twins
@@ -14,6 +13,8 @@ predicates and HBM-streaming kernels (ops/pallas_sgd_xl.py, interpret mode).
   TwoSum compensation plane (the port keeps f64) and form the consensus
   sums in two bf16 MXU passes (about 2^-16 of each update), so they sit
   2e-6 to 5e-6 of the scale from their own twins on these graphs.
+- The XL state carries the conflict levels of its plan, as every route's
+  chunk phase runs on the leveled kernels.
 """
 
 from types import SimpleNamespace
@@ -30,7 +31,7 @@ from odgi_tpu.ops import pallas_sgd_xxl as jxxl
 from odgi_tpu.ops import sgd as j_sgd
 
 from odgi_tpu_torch.convert import graph_from_arrays, graph_to_arrays
-from odgi_tpu_torch.ops import sgd, strata_plan, strata_route, strata_sgd, strata_xl
+from odgi_tpu_torch.ops import sgd, strata_route, strata_sgd
 
 TWIN_TOL = 1e-6
 KERNEL_TOL = 1e-5
@@ -134,48 +135,6 @@ def test_route_of_real_graph(graphs, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# Sync flags
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
-@pytest.mark.parametrize("kw", [dict(iter_max=3, min_term_updates=3 * 1024), {}],
-                         ids=["short", "default"])
-def test_sync_flags_byte_equal(graphs, one_d, kw):
-    gj, gt = graphs
-    derive_j = j_sgd.derive_config_1d if one_d else j_sgd.derive_config_2d
-    derive_t = sgd.derive_config_1d if one_d else sgd.derive_config_2d
-    pj = ps.plan_run(gj, derive_j(gj, **kw), one_d=one_d)
-    pt = strata_plan.plan_run(gt, derive_t(gt, **kw), one_d=one_d)
-    want = jxl._pack_od_xl(pj)
-    got = strata_xl.pack_od_xl(pt)
-    assert got.dtype == want.dtype and got.shape == want.shape
-    assert got.tobytes() == want.tobytes()
-    flags = strata_xl.sync_flags(pt)
-    assert flags.shape == (pt["groups"] * pt["cgs"],)
-    assert np.array_equal(flags, want[:, 2, : pt["cgs"]].reshape(-1))
-
-
-def test_sync_flags_cover_the_windows(graphs):
-    """A flag of 0 means the chunk's A and B windows miss the previous
-    chunk's, slot for slot."""
-    _, gt = graphs
-    p = strata_plan.plan_run(gt, sgd.derive_config_2d(gt), one_d=False)
-    flags = strata_xl.sync_flags(p)
-    o = p["o_blk"].astype(np.int64) * strata_plan.LANE
-    d = p["d_arr"].astype(np.int64)
-    C = strata_plan.CHUNK
-    wins = [(o, o + C), (o + d, o + d + C)]
-    hit = np.zeros(len(o), bool)
-    for a0, a1 in wins:
-        for b0, b1 in wins:
-            hit[1:] |= (a0[1:] < b1[:-1]) & (b0[:-1] < a1[1:])
-    hit[:: p["cgs"]] = False
-    assert not (hit & (flags == 0)).any()
-    assert flags.sum() >= hit.sum()
-
-
-# ---------------------------------------------------------------------------
 # The XL route
 # ---------------------------------------------------------------------------
 
@@ -211,10 +170,9 @@ def test_xl_route_1d(graphs):
     assert np.abs(xl - gt.node_offset).max() > 1.0
 
 
-def test_xl_plan_sync_flags(graphs):
-    """The XL state's plan gives one sync flag a chunk (the stream chain
-    kernels' gate); the state itself carries the conflict levels, which
-    replace the flags on the main path."""
+def test_xl_state_carries_levels(graphs):
+    """The XL state carries its plan's conflict levels, with neither the
+    xxl block schedule nor its relabel; an unknown route is refused."""
     import torch
 
     from odgi_tpu_torch.ops import strata_levels
@@ -223,9 +181,6 @@ def test_xl_plan_sync_flags(graphs):
     cfg = sgd.derive_config_2d(gt, **KW)
     st = strata_sgd.StrataState.build(gt, cfg, j_init_layout(gt, "d"), False,
                                       torch.device("cpu"), "xl")
-    flags = strata_xl.sync_flags(st.plan)
-    assert flags.dtype == np.int32 and flags.shape == (st.od.shape[0],)
-    assert not hasattr(st, "sync")
     assert torch.equal(st.perm, torch.from_numpy(strata_levels.chunk_levels(st.plan)[0]))
     assert st.bsch is None and st.order is None
     with pytest.raises(ValueError):

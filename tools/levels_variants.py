@@ -8,21 +8,16 @@ shuffled; a plan depends on the paths' steps, not on the node order), 1D and
 2D, at the main path's default schedules, this measures on the card:
   - ``groups``: the first --groups merge groups of the full plan, each from
     a zero drift, through
-      ``grid``: the grid-barrier kernel strata_chunks_*_levels_grid (a 1024-thread
-        block a chunk, one block an SM, a grid barrier a level);
-      ``barrier_only``: the same cooperative grid and its grid barriers, one
-        a level, with the chunk body removed (VARIANTS): the barriers alone;
       ``levels``: strata_chunks_*_levels as the package builds it (2D:
         clusters of 4 blocks of 1024 threads; 1D: 1 block of 1024);
       ``c<C>_t<T>``: the same kernel compiled here at cluster sizes C and
         block widths T (VARIANTS);
     in alternating rounds, each launch behind chip_smoke.py's spin kernel;
-    every design but barrier_only must give the grid kernel's drift bit
-    for bit;
+    every variant must give the drift of ``levels`` bit for bit;
   - ``width``: one level of N slot-disjoint chunks of the plan (picked in
     order, N = 37, 49, 132, 137, 264 where the planes hold that many), one
-    chunk's latency against the level's width, through ``grid``,
-    ``levels`` and the variants;
+    chunk's latency against the level's width, through ``levels`` and the
+    variants;
   - ``bytes``: what a chunk reads, as 32-byte sectors (2D: the coin picks
     one of two planes a pair, so a warp pulls both planes' sectors of pos /
     pos_end, base and drift) and as the words its pairs use.
@@ -35,8 +30,7 @@ plans and on the XL graph's 4-device stacked plan (the sharded path's), in
 turns (old, new, numpy, numpy, new, old): one ``host_schedule`` line a
 plan, the builds' perm and level offsets held equal.
 Prints one JSON line a graph and dimension (every time in ms), then the
-card's name and power limit; exits non-zero on a mismatch.  chip_smoke.py
-imports `build_variants` and `barrier_only` for its old-against-new line.
+card's name and power limit; exits non-zero on a mismatch.
 """
 
 from __future__ import annotations
@@ -65,36 +59,6 @@ WIDTHS = (37, 49, 132, 137, 264)
 
 VARIANTS = r"""
 #include "strata_levels.cu"
-
-namespace {
-
-// The grid-leveled kernel's loop with the chunk body removed: its level
-// offsets read and one grid barrier a level.
-__global__ void __launch_bounds__(LEVEL_THREADS, 1)
-barrier_only_kernel(const int* __restrict__ lvl_off, int nlev, unsigned int* counter) {
-  int k = 0;
-  for (int lv = 0; lv < nlev; ++lv) {
-    k += lvl_off[lv + 1];
-    if (lv + 1 < nlev) grid_barrier(counter);
-  }
-  if (k == -1) *counter = 0u;  // keeps the reads
-}
-
-}  // namespace
-
-extern "C" int levels_barrier_only(int one_d, const void* lvl_off, int nlev, void* counter,
-                                   void* stream) {
-  int blocks = 0;
-  const int err = grid_blocks(one_d ? grid_kernel<true>() : grid_kernel<false>(),
-                              one_d ? 1 : 0, &blocks);
-  if (err != 0) return err;
-  void* args[] = {&lvl_off, &nlev, &counter};
-  const cudaError_t lerr = cudaLaunchCooperativeKernel((const void*)barrier_only_kernel,
-                                                       dim3(blocks), dim3(LEVEL_THREADS), args,
-                                                       0, (cudaStream_t)stream);
-  if (lerr != cudaSuccess) return (int)lerr;
-  return (int)cudaGetLastError();
-}
 
 #define VARIANT(I, C, T)                                                                    \
   extern "C" int levels_variant_##C##_##T(int one_d, void* drift, const void* base,         \
@@ -141,8 +105,6 @@ def load_variants(proc: subprocess.Popen, out_dir: str):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc levels_variants.cu ({proc.returncode}):\n{err}")
     lib = ctypes.CDLL(os.path.join(out_dir, "levels_variants.so"))
-    lib.levels_barrier_only.argtypes = [I, P, I, P, P]
-    lib.levels_barrier_only.restype = I
     for c, t in SHAPES:
         fn = getattr(lib, f"levels_variant_{c}_{t}")
         fn.argtypes = [I, *kernels.SIGNATURES["strata_chunks_2d_levels"][:-2], P]
@@ -152,19 +114,6 @@ def load_variants(proc: subprocess.Popen, out_dir: str):
         q.restype = I
     lib.ptxas = out + err
     return lib
-
-
-def barrier_only(lib, st, gid: int) -> None:
-    """Group `gid`'s levels through the barrier-only grid."""
-    device = st.drift.device
-    counter = kernels._BARRIER.get(device)
-    if counter is None:
-        counter = kernels._BARRIER[device] = torch.zeros(1, dtype=torch.int32, device=device)
-    row = st.lvl_rows[gid]
-    err = lib.levels_barrier_only(int(st.one_d), kernels._ptr(row), int(row.shape[0] - 1),
-                                  kernels._ptr(counter), kernels._stream(device))
-    if err != 0:
-        raise RuntimeError(f"levels_barrier_only: CUDA error {err}")
 
 
 def variant(lib, c: int, t: int):
@@ -185,12 +134,9 @@ def variant(lib, c: int, t: int):
 
 def designs(lib, st) -> dict:
     """name -> fn(st, drift, perm, row, pred_off, pred)."""
-    grid = getattr(kernels, cs.GRIDS[st.one_d])
     new = getattr(kernels, cs.LEVELS[st.one_d])
     p = st.plan
     out = {
-        "grid": lambda st, d, perm, row, po, pr: grid(d, st.base, st.planes, st.od, st.eta,
-                                                      p["cpi"], perm, row),
         "levels": lambda st, d, perm, row, po, pr: new(d, st.base, st.planes, st.od, st.eta,
                                                        p["cpi"], perm, row, po, pr),
     }
@@ -244,8 +190,7 @@ def measure(lib, st, label: str, n_groups: int, reps: int) -> dict:
                groups_timed=n_groups, bytes=chunk_bytes(st.one_d),
                clusters={f"c{c}_t{t}": int(getattr(lib, f"levels_variant_clusters_{c}_{t}")(
                    int(st.one_d))) for c, t in SHAPES},
-               levels_clusters=kernels.levels_clusters(st.one_d),
-               grid_blocks=kernels.levels_grid_blocks(st.one_d))
+               levels_clusters=kernels.levels_clusters(st.one_d))
 
     def launcher(k, perm, row, po, pr):
         def run():
@@ -257,16 +202,15 @@ def measure(lib, st, label: str, n_groups: int, reps: int) -> dict:
     for gid in range(n_groups):
         row = st.lvl_rows[gid]
         runs = {k: launcher(k, st.perm, row, st.pred_off, st.pred) for k in ds}
-        runs["barrier_only"] = lambda: cs.timed(barrier_only, lib, st, gid)
         t = time_rounds(runs, reps)
         ref = torch.empty_like(zero)
         ref.copy_(zero)
-        ds["grid"](st, ref, st.perm, row, st.pred_off, st.pred)
+        ds["levels"](st, ref, st.perm, row, st.pred_off, st.pred)
         for k in ds:
             work[k].copy_(zero)
             ds[k](st, work[k], st.perm, row, st.pred_off, st.pred)
             if not torch.equal(work[k], ref):
-                raise SystemExit(f"{label} {out['dim']} group {gid}: {k} differs from grid")
+                raise SystemExit(f"{label} {out['dim']} group {gid}: {k} differs from levels")
         groups.append(dict(group=gid, n_levels=int(row.shape[0] - 1), **{
             k: v["mean"] for k, v in t.items()}, all=t))
     out["groups"] = groups

@@ -11,8 +11,7 @@ of NEW_CSRC: its instruction count and whether its instruction stream
 equals that of the same kernel in OLD_CSRC.  A leveled kernel's name is
 read without its parameter list, and an untemplated one as `<false>`, so
 that a kernel that gained a template flag and a parameter is compared
-with its old self, and strata_chunks_{1d,2d}_levels_grid_kernel with the
-untracked leveled kernel it was before its rename.  Only the `/*addr*/`
+with its old self.  Only the `/*addr*/`
 prefixes and the encodings are dropped: operands, registers and
 constant-bank offsets are compared.
 Exits non-zero if a kernel of OLD_CSRC has no equal in NEW_CSRC.
@@ -40,9 +39,6 @@ def kernel_name(mangled: str) -> str:
     with `<true>` / `<false>` for a leveled kernel (untemplated: `<false>`),
     else the mangled name without its anonymous namespace's hash."""
     name = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+", "", mangled)
-    m = re.search(r"(strata_chunks_[12]d)_levels_grid_kernel", name)
-    if m:  # the untracked leveled kernels, renamed *_levels_grid
-        return f"{m.group(1)}_levels_kernel<false>"
     m = re.search(r"(strata_chunks_[12]d_levels_kernel)(ILb([01])E)?", name)
     if m and not name[m.end(1):].startswith("ILi"):  # not the cluster kernels
         return f"{m.group(1)}<{'true' if m.group(3) == '1' else 'false'}>"
