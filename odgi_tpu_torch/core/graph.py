@@ -12,7 +12,7 @@ sort -> layout path reads.  Nodes, edges and paths are flat numpy arrays:
   path).
 
 Construction and edits stay on the host; the SGD runs copy the step
-table into device tensors (see ``ops/strata_plan.py``).
+table into device tensors (see ``ops/strata_sgd.py`` ``fill_slots``).
 """
 
 from __future__ import annotations

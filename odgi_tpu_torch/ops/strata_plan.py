@@ -1,7 +1,8 @@
 """Host plan of the strata PG-SGD scheme (numpy).
 
-The counterpart of the host half of ``odgi_tpu/ops/pallas_sgd.py``: the step
-planes (``PallasSgdData.build``, here flat), the zeta constants, the
+The counterpart of the host half of ``odgi_tpu/ops/pallas_sgd.py``: the slot
+layout of the step planes (``PallasSgdData.build``, here flat and filled on
+the run's device by ``strata_sgd.fill_slots``), the zeta constants, the
 learning-rate table, the per-chunk scalars drawn from numpy's Philox stream,
 the exact count of valid pairs, and ``plan_run``.  Every output equals the
 JAX package's bit for bit, so both packages run the same chunks in the same
@@ -39,57 +40,33 @@ def _pad_to(n: int, m: int) -> int:
 
 @dataclass(frozen=True)
 class StrataData:
-    """Step planes in step order, flat.
+    """The slot layout of a run: its step count and padded slot count.
 
-    planes: i32 (4, L) [pos, pos_end, handle, path] for 2D, (3, L)
-        [pos, handle, path] for 1D.  Slots past the last step keep
-        path = -1, so a window that runs past the end masks out through
-        the same path compare that masks cross-path pairs, and handle =
-        2*num_nodes, a dummy endpoint that no merge reads back.
+    The step planes themselves are filled on the run's device
+    (``strata_sgd.fill_slots``): i32 (4, L) [pos, pos_end, handle, path]
+    for 2D, (3, L) [pos, handle, path] for 1D, in step order.  Slots past
+    the last step keep path = -1, so a window that runs past the end masks
+    out through the same path compare that masks cross-path pairs, and
+    handle = 2*num_nodes, a dummy endpoint that no merge reads back.
     """
 
-    planes: np.ndarray
     num_steps: int
     n_blocks: int   # valid 128-aligned window start blocks (= ceil(S/128))
     num_nodes: int
     space: int
     one_d: bool
-
-    @property
-    def num_slots(self) -> int:
-        return self.planes.shape[1]
+    num_slots: int  # L: the steps, then room for a window past the last
 
     @staticmethod
     def build(g, space: int, one_d: bool = False) -> "StrataData":
         S = g.num_steps
-        handle = g.step_handle.astype(np.int64)
-        node = handle >> 1
-        pos = g.step_pos.astype(np.int64)
-        path_id = g.step_path.astype(np.int64)
-
-        pad = _pad_to(S + CHUNK + space + 4 * RC * LANE, TR * LANE)
-        if one_d:
-            pl = np.zeros((3, pad), np.int32)
-            pl[P1_PATH] = -1
-            pl[P1_HANDLE] = 2 * g.num_nodes
-            pl[P1_POS, :S] = pos
-            pl[P1_HANDLE, :S] = handle
-            pl[P1_PATH, :S] = path_id
-        else:
-            pl = np.zeros((4, pad), np.int32)
-            pl[PATH] = -1
-            pl[HANDLE] = 2 * g.num_nodes
-            pl[POS, :S] = pos
-            pl[POSEND, :S] = pos + g.node_len[node]
-            pl[HANDLE, :S] = handle
-            pl[PATH, :S] = path_id
         return StrataData(
-            planes=pl,
             num_steps=S,
             n_blocks=max(1, -(-S // LANE)),
             num_nodes=g.num_nodes,
             space=space,
             one_d=one_d,
+            num_slots=_pad_to(S + CHUNK + space + 4 * RC * LANE, TR * LANE),
         )
 
 

@@ -47,10 +47,11 @@ import numpy as np
 import torch
 
 from .. import native
-from ..utils.metrics import span
+from ..utils.metrics import count, span
 from . import kernels, strata_levels
 from .sgd import LAST_RUN
-from .strata_plan import CHUNK, LANE, P1_PATH, P1_POS, PATH, POS, POSEND, plan_run
+from .strata_plan import (CHUNK, HANDLE, LANE, P1_HANDLE, P1_PATH, P1_POS, PATH, POS, POSEND,
+                          StrataData, plan_run)
 from .strata_route import ROUTES, graph_route
 from .strata_xxl import BlockSchedule, relabel, relabel_coords, unrelabel
 
@@ -418,6 +419,57 @@ def merge_block_eps(csr_off: np.ndarray) -> int:
     return b
 
 
+def fill_slots(g, data: StrataData, coords: torch.Tensor):
+    """(planes, base): the slot arrays of a run of `g` in the layout `data`,
+    filled on `coords`' device from the step table.
+
+    planes: i32 (4, L) [pos, pos_end, handle, path] for 2D, (3, L) [pos,
+        handle, path] for 1D; pos_end = pos + the node's length, path from
+        ``path_offset``; the pad slots past the last step hold path -1,
+        handle 2*num_nodes and pos = pos_end = 0 (see ``StrataData``).
+    base: f32 (4, L) [xf, xr, yf, yr] for 2D, (1, L) for 1D: `coords` (f64
+        (2, 2N) per endpoint, or (1, N) per node) rounded to f32, at each
+        slot's handle h and its complement h ^ 1 (1D: at its node h >> 1);
+        0 on the pad slots.
+
+    The step handles and positions are copied once, as int64, and cast on
+    the device (on an H100 a host cast to int32 first took longer than the
+    wider copy); nothing the size of the slots is built on the host."""
+    dev = coords.device
+    S, L, one_d = data.num_steps, data.num_slots, data.one_d
+    if one_d:
+        (r_pos, r_handle, r_path), pad = (P1_POS, P1_HANDLE, P1_PATH), [0, 2 * data.num_nodes, -1]
+    else:
+        (r_pos, r_handle, r_path), pad = (POS, HANDLE, PATH), [0, 0, 2 * data.num_nodes, -1]
+    planes = torch.empty((len(pad), L), dtype=torch.int32, device=dev)
+    planes[:, S:] = torch.tensor(pad, dtype=torch.int32, device=dev)[:, None]
+    h = torch.as_tensor(g.step_handle, device=dev).to(torch.int32)
+    planes[r_handle, :S] = h
+    planes[r_pos, :S] = torch.as_tensor(g.step_pos, device=dev)
+    # path ids: +1 at every later path's first step (twice where a path
+    # between is empty), summed along the steps
+    starts = np.asarray(g.path_offset[1:-1])
+    starts = torch.as_tensor(starts[starts < S], device=dev)
+    marks = torch.zeros(S, dtype=torch.int32, device=dev)
+    marks.index_add_(0, starts, torch.ones(starts.shape, dtype=torch.int32, device=dev))
+    torch.cumsum(marks, 0, dtype=torch.int32, out=planes[r_path, :S])
+    if not one_d:
+        node_len = torch.as_tensor(g.node_len, device=dev).to(torch.int32)
+        torch.add(planes[POS, :S], torch.index_select(node_len, 0, h >> 1),
+                  out=planes[POSEND, :S])
+    c32 = coords.to(torch.float32)
+    base = torch.empty((1 if one_d else 4, L), dtype=torch.float32, device=dev)
+    base[:, S:] = 0.0
+    if one_d:
+        ends = ((0, h >> 1),)
+    else:
+        hr = h ^ 1
+        ends = ((0, h), (0, hr), (1, h), (1, hr))
+    for row, (ch, idx) in enumerate(ends):
+        torch.index_select(c32[ch], 0, idx, out=base[row, :S])
+    return planes, base
+
+
 @dataclass
 class StrataState:
     """Device tensors of one strata run (see the module docstring).
@@ -452,8 +504,9 @@ class StrataState:
         `g`'s numbering.  `plan` replaces `plan_run`'s plan of `g` (the
         sharded run's stacked plan); the "xxl" route, which relabels `g`,
         takes none.  The host work comes first, in its own spans (relabel,
-        plan, chunk schedule, merge index, block schedule), then the slot
-        arrays and every copy to `device` (``strata.upload``)."""
+        plan, chunk schedule, merge index, block schedule), then every copy
+        to `device`, the step table's among them, and the slot arrays'
+        fill there (``fill_slots``; ``strata.upload``)."""
         if route not in ROUTES:
             raise ValueError(f"strata route {route!r} is not one of {ROUTES}")
         order = None
@@ -466,44 +519,33 @@ class StrataState:
         p = plan_run(g, cfg, one_d=one_d) if plan is None else plan
         data = p["data"]
         L = data.num_slots
-        S = g.num_steps
         if int((p["o_blk"].astype(np.int64) * LANE + CHUNK + p["d_arr"]).max()) > L:
             raise AssertionError("strata plan: a window runs past the planes")
         perm_h, lvl_off, pred_off, pred = strata_levels.chunk_schedule(p)
         mi = MergeIndex.build(g, L, one_d, torch.device("cpu"))
         bsch = BlockSchedule.build(g, one_d, torch.device("cpu")) if route == "xxl" else None
         with span("strata.upload"):
-            node = (g.step_handle >> 1).astype(np.int64)
             if one_d:
-                x32 = np.asarray(init, np.float32)
-                base = np.zeros((1, L), np.float32)
-                base[0, :S] = x32[node]
-                coords = x32.astype(np.float64)[None, :]
+                coords = np.asarray(init, np.float32).astype(np.float64)[None, :]
             else:
-                c = np.asarray(init, np.float64)
-                c32 = c.astype(np.float32)
-                epf = g.step_handle.astype(np.int64)
-                base = np.zeros((4, L), np.float32)
-                base[0, :S] = c32[epf, 0]
-                base[1, :S] = c32[epf ^ 1, 0]
-                base[2, :S] = c32[epf, 1]
-                base[3, :S] = c32[epf ^ 1, 1]
-                coords = np.ascontiguousarray(c.T)
+                coords = np.asarray(init, np.float64).T
             od = np.stack([p["o_blk"], p["d_arr"]], axis=1).astype(np.int32)
             mi = mi.to(device)
             t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
-            base_t = t(base, torch.float32)
+            coords_t = t(coords, torch.float64)
+            planes, base = fill_slots(g, data, coords_t)
+            count("strata.slots_device")
             off_t = t(lvl_off, torch.int32)
             return StrataState(
                 plan=p,
                 one_d=one_d,
-                planes=t(data.planes, torch.int32),
-                base=base_t,
-                drift=torch.zeros_like(base_t),
+                planes=planes,
+                base=base,
+                drift=torch.zeros_like(base),
                 od=t(od, torch.int32),
                 eta=t(p["eta_table"], torch.float32),
                 mi=mi,
-                coords=t(coords, torch.float64),
+                coords=coords_t,
                 upd=torch.zeros((coords.shape[0], mi.ecap), dtype=torch.float64, device=device),
                 perm=t(perm_h, torch.int32),
                 lvl_rows=[off_t[gid, :n + 1]

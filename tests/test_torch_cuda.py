@@ -905,3 +905,61 @@ def test_stats_on_card_equal_cpu(cuda, stats_graph, case):
 
     fn = STATS_ON_DEVICE[case]
     _same_value(fn(stats, stats_graph, "cpu"), fn(stats, stats_graph, cuda))
+
+
+@pytest.fixture(scope="module")
+def chip_graphs():
+    """chip_smoke.py's XL graph (5,000,000 steps over 10,000 nodes: the xl
+    route in both dimensions) and 1M-node graph (10,000,000 steps: the xxl
+    route), ids shuffled."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke as cs
+
+    return {"xl": cs.shuffled_graph(cs.XL_STEPS, cs.XL_NODES, cs.XL_PATH_STEPS),
+            "1m": cs.shuffled_graph(cs.BIG_STEPS, cs.BIG_NODES, cs.BIG_PATH_STEPS)}
+
+
+@pytest.mark.parametrize("one_d", [True, False], ids=["1d", "2d"])
+@pytest.mark.parametrize("name", ["xl", "1m"])
+def test_slots_filled_on_card_equal_cpu(cuda, chip_graphs, name, one_d):
+    """On the XL and 1M-node graphs, each on its own route: the planes and
+    base that StrataState.build fills on the card equal the CPU build's and
+    the host forms (tests/slot_forms.py) bit for bit, and a whole run from
+    them gives the coordinates of the same run from the host forms, bit
+    for bit."""
+    from odgi_tpu_torch.ops import strata_route
+    from slot_forms import slot_arrays_numpy
+
+    g = chip_graphs[name]
+    if one_d:
+        cfg, init = sgd.derive_config_1d(g), g.node_offset.astype(np.float32)
+    else:
+        cfg, init = sgd.derive_config_2d(g), init_layout(g)
+    route = strata_route.graph_route(g, cfg, one_d)
+    assert route == {"xl": "xl", "1m": "xxl"}[name]
+    st = strata_sgd.StrataState.build(g, cfg, init, one_d, cuda, route)
+    on_cpu = strata_sgd.StrataState.build(g, cfg, init, one_d, torch.device("cpu"), route)
+    assert torch.equal(st.planes.cpu(), on_cpu.planes)
+    assert torch.equal(st.base.cpu().view(torch.int32), on_cpu.base.view(torch.int32))
+    del on_cpu
+    g_run, init_run = g, init
+    if route == "xxl":
+        g_run, order = strata_xxl.relabel(g)
+        init_run = strata_xxl.relabel_coords(np.asarray(init), order)
+    planes, base = slot_arrays_numpy(g_run, st.plan["data"].num_slots, init_run, one_d)
+    assert np.array_equal(st.planes.cpu().numpy(), planes)
+    assert np.array_equal(st.base.cpu().numpy().view(np.int32), base.view(np.int32))
+    host = dataclasses.replace(
+        st, planes=torch.from_numpy(planes).to(cuda), base=torch.from_numpy(base).to(cuda),
+        drift=torch.zeros_like(st.drift), coords=st.coords.clone(),
+        upd=torch.zeros_like(st.upd), dmax=torch.zeros_like(st.dmax))
+    start = st.coords.clone()
+    st.run()
+    host.run()
+    assert torch.equal(st.coords, host.coords)
+    assert not torch.equal(st.coords, start)

@@ -1,11 +1,13 @@
 """The port's strata plan against odgi_tpu's, on the CPU: exact equality of
-the Zipf tables, the schedule, the configs, plan_run and the coin hash."""
+the Zipf tables, the schedule, the configs, plan_run (its step planes as
+``strata_sgd.fill_slots`` writes them) and the coin hash."""
 
 import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from odgi_tpu.core.graph import GraphBuilder
 from odgi_tpu.ops import pallas_sgd as ps
@@ -89,8 +91,12 @@ def test_plan_run(graphs, dim, kw):
         assert pj[k].dtype == pt[k].dtype and np.array_equal(pj[k], pt[k]), k
     for k in ("cpi", "cgs", "groups", "total_valid", "total_slots"):
         assert pj[k] == pt[k], k
-    assert np.array_equal(np.asarray(pj["data"].planes).reshape(pt["data"].planes.shape),
-                          pt["data"].planes)
+    # the planes as fill_slots writes them on the run's device (here the CPU)
+    n = gt.num_nodes if one_d else 2 * gt.num_nodes
+    planes, _ = strata_sgd.fill_slots(gt, pt["data"], torch.zeros((1 if one_d else 2, n),
+                                                                  dtype=torch.float64))
+    assert planes.dtype == torch.int32 and planes.shape[1] == pt["data"].num_slots
+    assert np.array_equal(np.asarray(pj["data"].planes).reshape(planes.shape), planes.numpy())
     if kw.get("iter_max") == 1:
         assert pt["groups"] > 1
 

@@ -22,8 +22,10 @@ from odgi_tpu.ops import sgd as j_sgd
 
 from odgi_tpu_torch import native
 from odgi_tpu_torch.convert import graph_from_arrays, graph_to_arrays
-from odgi_tpu_torch.ops import sgd, strata_sgd
+from odgi_tpu_torch.ops import sgd, strata_sgd, strata_xxl
+from odgi_tpu_torch.parallel import sharded_strata
 from odgi_tpu_torch.utils.metrics import TOTALS
+from slot_forms import slot_arrays_numpy
 from test_torch_xxl import steps_path  # noqa: F401  (a fixture)
 
 SHORT_TOL = 1e-6
@@ -245,6 +247,57 @@ def test_merge_index_equals_argsort_form(graphs, steps_path, table, one_d):
     assert mi.block_eps == strata_sgd.merge_block_eps(off)
     if table == "stepless-nodes":
         assert (recip[-60 * (1 if one_d else 2):] == 0).all()
+
+
+def _with_empty_paths(gt):
+    """`gt` with empty paths before, between and after its paths."""
+    off = gt.path_offset
+    names = ("e0",) + gt.path_names[:1] + ("e1",) + gt.path_names[1:] + ("e2",)
+    return graph_from_arrays(dict(graph_to_arrays(gt)) | dict(
+        path_names=names, path_circular=np.zeros(len(names), bool),
+        path_offset=np.concatenate([[0], off[:2], off[1:], off[-1:]])))
+
+
+@pytest.mark.parametrize("dim,route", [
+    ("1d", "resident"), ("1d", "xxl"), ("2d", "resident"), ("2d", "xxl"), ("2d", "sharded"),
+    ("1d", "empty-paths"), ("2d", "empty-paths"),
+])
+def test_slots_filled_on_device_equal_host_forms(graphs, dim, route):
+    """StrataState.build's planes and base, filled on the device from the
+    step table, equal the host forms bit for bit and dtype for dtype, pad
+    slots included, on every route, on the sharded run's stacked plan and
+    with empty paths in the table; each build counts one device fill.  The
+    start has f64 values that f32 does not hold, so the rounding shows."""
+    _, gt = graphs
+    if route == "empty-paths":
+        gt, route = _with_empty_paths(gt), "resident"
+        assert (np.diff(gt.path_offset) == 0).sum() == 3
+    one_d = dim == "1d"
+    rng = np.random.default_rng(11)
+    kw = dict(iter_max=2, min_term_updates=3 * 1024)
+    if one_d:
+        cfg = sgd.derive_config_1d(gt, **kw)
+        init = gt.node_offset + rng.normal(size=gt.num_nodes) / 3
+    else:
+        cfg = sgd.derive_config_2d(gt, **kw)
+        init = j_init_layout(gt, "d") + rng.normal(size=(2 * gt.num_nodes, 2)) / 3
+    plan = sharded_strata.stacked_plan(gt, cfg, 2) if route == "sharded" else None
+    before = TOTALS.get("strata.slots_device", {}).get("runs", 0)
+    st = strata_sgd.StrataState.build(gt, cfg, init, one_d, torch.device("cpu"),
+                                      "resident" if route == "sharded" else route, plan=plan)
+    assert TOTALS["strata.slots_device"]["runs"] == before + 1
+    g_run, init_run = gt, init
+    if route == "xxl":
+        g_run, order = strata_xxl.relabel(gt)
+        assert np.array_equal(order, st.order)
+        init_run = strata_xxl.relabel_coords(np.asarray(init), order)
+    L = st.plan["data"].num_slots
+    assert L > g_run.num_steps
+    planes, base = slot_arrays_numpy(g_run, L, init_run, one_d)
+    assert st.planes.dtype == torch.int32 and st.base.dtype == torch.float32
+    assert np.array_equal(st.planes.numpy(), planes)
+    assert np.array_equal(st.base.numpy().view(np.int32), base.view(np.int32))
+    assert st.drift.shape == base.shape and not st.drift.any()
 
 
 def _small_graph(gt):
