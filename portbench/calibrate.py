@@ -38,15 +38,16 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     c = harness.load_cell(harness.ROOT, args.workload)
-    job = jobs.make(c["traffic"])
+    job = jobs.make(c["traffic"], c["kind_dir"])
     sink = open(args.out, "a") if args.out else None
     sync = torch.cuda.synchronize if args.device == "cuda" else (lambda: None)
     try:
         for gseed in args.graph_seeds:
             from odgi_tpu_torch.convert import graph_from_arrays
 
-            f = harness.graph_fields(c["config"], gseed)
+            f = harness.graph_fields(c["config"], gseed, c["graph_dir"])
             g = graph_from_arrays(f)
+            workdir = harness.prepare(job, dataclasses.replace(g, _cache={}))
             job.install()
             for k in range(1, args.jobs + 1):
                 s = harness.job_seed(gseed, k)
@@ -71,6 +72,8 @@ def main(argv=None) -> int:
                     sink.write(json.dumps(line) + "\n")
                     sink.flush()
             job.uninstall()
+            if workdir is not None:
+                workdir.cleanup()
     finally:
         if sink:
             sink.close()

@@ -3,24 +3,30 @@
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 A cell is an entry of ``BENCHMARK.json``'s ``workloads``: a configuration
-(``configs/<config>.json``: the graph's sizes), a traffic mix
-(``traffic/<mix>.json``: which job, with what parameters; ``jobs.py``) and
-the limits of its correctness check (``limits/<cell>.json``).  Each
-per-layer metric is read by ``metrics/<metric>.py``, or where that file is
-missing by the reader of its base name (the part before the first '.':
-``kernels_roofline.sort`` is read by ``metrics/kernels_roofline.py``).
-Everything is found by the names in ``BENCHMARK.json``, so a new cell,
-configuration, mix or metric is new files and entries.
+(``configs/<config>.json``: the graph's sizes, and the graph source
+``graphs/<graph>.py`` where it names a ``"graph"``; ``graphgen.py``
+otherwise), a traffic mix (``traffic/<mix>.json``: which job, with what
+parameters; a built-in kind of ``jobs.py``, else the class ``JOB`` of
+``kinds/<job>.py``) and the limits of its correctness check
+(``limits/<cell>.json``).  Each per-layer metric is read by
+``metrics/<metric>.py``, or where that file is missing by the reader of its
+base name (the part before the first '.': ``kernels_roofline.sort`` is read
+by ``metrics/kernels_roofline.py``).  Everything is found by the names in
+``BENCHMARK.json``, so a new cell, configuration, graph source, mix, job
+kind or metric is new files and entries; a name with no file stops the run
+with the path it looked for.
 
-A run: set-up makes the graph from ``--seed`` and runs one job to warm up
-(the first run of a checkout also builds the program's kernels).  Then a
-closed loop of one user's jobs, back to back: job k takes the PG-SGD seed
-drawn from (seed, k); a job starts while less than ``--seconds`` has passed,
-and the window ends when the last started job ends.  The end-to-end metric
-is the window over the jobs it completed.  With ``--trace 1`` the window
-runs under ``torch.profiler`` with the benchmark's spans (``spans.py``) and
-reports the per-layer metrics instead.  After the window one job, drawn from
-the seed, is worked out again by the plain reference (``reference.py``) and
+A run: set-up makes the graph from ``--seed``, lets a kind with a
+``prepare`` hook write its input files into a temporary directory (removed
+after the check), and runs one job to warm up (the first run of a checkout
+also builds the program's kernels).  Then a closed loop of one user's jobs,
+back to back: job k takes the PG-SGD seed drawn from (seed, k); a job
+starts while less than ``--seconds`` has passed, and the window ends when
+the last started job ends.  The end-to-end metric is the window over the
+jobs it completed.  With ``--trace 1`` the window runs under
+``torch.profiler`` with the benchmark's spans (``spans.py``) and reports
+the per-layer metrics instead.  After the window one job, drawn from the
+seed, is worked out again by the plain reference (``reference.py``) and
 compared; the numbers and their limits close standard error and the
 result's line.
 """
@@ -89,23 +95,50 @@ def load_cell(root: Path, workload: str) -> dict:
         end_to_end=e2e,
         per_layer=per_layer,
         metric_dir=bench_dir / "metrics",
+        kind_dir=bench_dir / "kinds",
+        graph_dir=bench_dir / "graphs",
     )
+
+
+def load_file(path: Path, what: str):
+    """The module in `path`, a file found by a name in the benchmark's files."""
+    if not path.is_file():
+        raise SystemExit(f"portbench: no {what} {path.stem!r}: {path} is missing")
+    spec = importlib.util.spec_from_file_location(f"portbench_{path.parent.name}_{path.stem}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def load_reader(metric_dir: Path, name: str):
     path = metric_dir / f"{name}.py"
     if not path.exists():
         path = metric_dir / f"{name.split('.')[0]}.py"
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{name}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return load_file(path, "metric")
 
 
-def graph_fields(config: dict, seed: int) -> dict:
+def graph_fields(config: dict, seed: int, graph_dir: Path = HERE / "graphs") -> dict:
+    """The graph's fields: ``graphs/<graph>.py``'s ``graph_arrays`` where
+    the configuration names a ``"graph"``, ``graphgen``'s otherwise."""
+    if "graph" in config:
+        return load_file(Path(graph_dir) / f"{config['graph']}.py",
+                         "graph source").graph_arrays(config, seed)
     from . import graphgen
 
     return graphgen.graph_arrays(config, seed)
+
+
+def prepare(job, g):
+    """A temporary directory holding the input files that `job`'s
+    ``prepare`` hook writes for graph `g`, or None for a kind without one.
+    The caller removes it (on an error it goes when the object is collected
+    or the process exits)."""
+    if not hasattr(job, "prepare"):
+        return None
+    workdir = tempfile.TemporaryDirectory(prefix="portbench-")
+    job.prepare(g, Path(workdir.name))
+    return workdir
 
 
 class Run:
@@ -139,8 +172,8 @@ def power_limit() -> str:
 
 def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool, device,
              t_start: float, config=None) -> dict:
-    """One run of `workload` on `device`; `config` replaces the
-    configuration's file (the CPU tests shrink the graph with it)."""
+    """One run of `workload` on `device`; `config`'s keys are laid over the
+    configuration file's (the CPU tests shrink the graph with it)."""
     import torch
 
     from odgi_tpu_torch.convert import graph_from_arrays
@@ -152,12 +185,13 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool, 
     cuda = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     c = load_cell(root, workload)
-    job = jobs.make(c["traffic"])
+    job = jobs.make(c["traffic"], c["kind_dir"])
     parts = dict(to_graph=time.perf_counter() - t_start)
-    f = graph_fields(config or c["config"], seed)
+    f = graph_fields({**c["config"], **(config or {})}, seed, c["graph_dir"])
     g = graph_from_arrays(f)
     fresh = lambda: dataclasses.replace(g, _cache={})
     parts["graph"] = time.perf_counter() - t_start - parts["to_graph"]
+    workdir = prepare(job, fresh())
     job.install()
     job.run(fresh(), job_seed(seed, 0), device)
     sync()
@@ -256,6 +290,8 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool, 
     checks = {k: dict(value=v, limit=float(c["limits"][k]["limit"])) for k, v in gaps.items()}
     result["correct"] = all(ch["value"] <= ch["limit"] for ch in checks.values())
     result["checks"] = checks
+    if workdir is not None:
+        workdir.cleanup()
     return result
 
 

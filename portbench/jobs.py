@@ -9,6 +9,17 @@ Each kind also gives the sampled stress of a result, a yardstick of
 quality that does not depend on the plan or the schedule; it is reported
 beside the check for the program and the reference, and decides nothing.
 
+A kind is a class built from the traffic file's parameters with
+``metric`` (the end-to-end metric's name), ``one_d``, ``install()`` /
+``uninstall()`` (around the jobs of a run), ``run(g, seed, device)``,
+``keep(out)`` (the host arrays the check reads), ``reference(f, seed,
+device, acc_dtype)``, ``compare(got, ref)`` (gap name to number) and
+``quality(f, kept)``; optionally ``prepare(g, workdir)``, called once in
+set-up before the warm-up job to write the run's input files (a command
+line's ``.og``) into a temporary directory, outside the timed jobs.  The
+two built-in kinds are below; any other name is the class ``JOB`` of
+``kinds/<name>.py``, so a new kind is a new file.
+
 - ``layout``: ``layout_graph(g, derive_config_2d(g, seed=s), seed=s)``,
   the packed (2N, 2) coordinates; ``coord_gap`` is the largest coordinate
   difference over the reference's extent.
@@ -22,6 +33,8 @@ beside the check for the program and the reference, and decides nothing.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 
@@ -154,5 +167,11 @@ class SortJob:
 KINDS = {"layout": LayoutJob, "sort": SortJob}
 
 
-def make(traffic: dict):
-    return KINDS[traffic["job"]](traffic)
+def make(traffic: dict, kind_dir: Path = Path(__file__).resolve().parent / "kinds"):
+    """The job of a traffic file: a built-in kind, else ``kinds/<job>.py``'s ``JOB``."""
+    kind = traffic["job"]
+    if kind in KINDS:
+        return KINDS[kind](traffic)
+    from .harness import load_file
+
+    return load_file(Path(kind_dir) / f"{kind}.py", "job kind").JOB(traffic)

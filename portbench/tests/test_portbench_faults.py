@@ -17,7 +17,7 @@ from portbench.tests.helpers import TINY, run_tiny
 CONTROL = {
     "chrom-90hap.layout": TINY["chrom-90hap.layout"],
     "locus-90hap.layout": dict(haplotypes=20, nodes=1000),
-    "locus-90hap.sort-Ygs": dict(haplotypes=20, nodes=1000),
+    "chrom-90hap.sort-Ygs": TINY["chrom-90hap.sort-Ygs"],
 }
 
 

@@ -1,4 +1,5 @@
-"""The benchmark's generator gives the graphs its configurations describe."""
+"""The benchmark's generator and graph sources give the graphs their
+configurations describe."""
 
 import numpy as np
 import pytest
@@ -68,3 +69,21 @@ def test_shuffle_keeps_the_graph():
     inv = np.empty(1000, np.int64)
     inv[perm] = np.arange(1000)
     assert np.array_equal(g["step_handle"], (inv[f["step_handle"] >> 1] << 1) | (f["step_handle"] & 1))
+
+
+def test_synth_is_the_smoke_runs_drb1_scale_graph():
+    """graphs/synth.py at the DRB1 sizes and seed 11 gives chip_smoke.py's
+    shuffled DRB1-scale graph, field for field and edge order included."""
+    import chip_smoke
+    from odgi_tpu_torch.convert import graph_to_arrays
+
+    from portbench import harness
+
+    steps, nodes, path_steps = chip_smoke.DRB1
+    assert (steps, nodes, path_steps) == (35_064, 4_955, 2_922)
+    f = harness.graph_fields(dict(graph="synth", steps=steps, nodes=nodes,
+                                  path_steps=path_steps), 11)
+    ref = graph_to_arrays(chip_smoke.shuffled_graph(steps, nodes, path_steps))
+    assert f.keys() == ref.keys() and f["path_names"] == ref["path_names"]
+    for k in ref.keys() - {"path_names"}:
+        assert f[k].dtype == ref[k].dtype and np.array_equal(f[k], ref[k]), k

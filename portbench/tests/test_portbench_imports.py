@@ -1,6 +1,7 @@
 """What the benchmark loads: no module of JAX or of the JAX package in a run,
-and nothing of the program in the reference and the generator.  Top-level
-names are compared whole: odgi_tpu_torch begins with odgi_tpu."""
+and nothing of the program in the reference, the generator and the graph
+sources (``graphs/``).  Top-level names are compared whole: odgi_tpu_torch
+begins with odgi_tpu."""
 
 import json
 import subprocess
@@ -19,10 +20,13 @@ print(json.dumps(sorted({{m.split('.')[0] for m in sys.modules}})))
 REFERENCE = """
 import json, sys
 sys.path.insert(0, {root!r})
-from portbench import graphgen, plan, reference, count
+from portbench import graphgen, graphs, harness, plan, reference, count
 f = graphgen.graph_arrays(dict(haplotypes=6, nodes=1000), 3)
 reference.layout(f, 5, "cpu")
 reference.sort_ygs(f, 5, "cpu")
+for p in sorted((harness.HERE / "graphs").glob("[!_]*.py")):
+    tiny = harness.load_file(p, "graph source").TINY
+    graphs.check_fields(harness.graph_fields(dict(tiny, graph=p.stem), 3))
 print(json.dumps(sorted({{m.split('.')[0] for m in sys.modules}})))
 """
 
@@ -35,7 +39,7 @@ def _modules(code: str) -> set:
 
 
 def test_a_run_loads_no_jax():
-    for cell, trace in (("locus-90hap.sort-Ygs", True), ("chrom-90hap.layout", False)):
+    for cell, trace in (("chrom-90hap.sort-Ygs", True), ("chrom-90hap.layout", False)):
         mods = _modules(RUN.format(root=str(harness.ROOT), cell=cell, trace=trace))
         assert "odgi_tpu_torch" in mods
         assert not mods & set(harness.FORBIDDEN), mods & set(harness.FORBIDDEN)
